@@ -1,0 +1,129 @@
+"""Columnar device-table model (PyTorch port of `columnar/table.py`).
+
+A table is a fixed-capacity row-major ``[capacity, ncol]`` tensor plus a
+0-d int32 ``num_rows`` tensor on the same device. Rows at index
+``>= num_rows`` are padding; every operator masks them out. The layout is
+the JAX package's, so a test compares the two buffers as they are.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+
+def key_sentinel(dtype: torch.dtype) -> int:
+    """Sentinel for masked-out sort keys: the dtype's max, sorts last."""
+    return torch.iinfo(dtype).max
+
+
+def _default_names(ncol: int) -> tuple:
+    return tuple(f"col{i + 1}" for i in range(ncol))
+
+
+@dataclasses.dataclass
+class Table:
+    """A fixed-capacity columnar table on one device.
+
+    Attributes:
+      data: ``[capacity, ncol]`` tensor; ``data[:, c]`` is column ``c``.
+      num_rows: 0-d int32 tensor on ``data``'s device; rows
+        ``[0, num_rows)`` are valid.
+      names: tuple of column names (``col1``, ``col2``, ...).
+    """
+
+    data: torch.Tensor
+    num_rows: torch.Tensor
+    names: tuple = ()
+
+    @property
+    def ncol(self) -> int:
+        return self.data.shape[1]
+
+    @property
+    def capacity(self) -> int:
+        return self.data.shape[0]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.data.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    def column(self, c: int) -> torch.Tensor:
+        """Logical column ``c`` as a 1D ``[capacity]`` tensor."""
+        return self.data[:, c]
+
+    @classmethod
+    def from_numpy(
+        cls,
+        array: np.ndarray,
+        *,
+        capacity: int | None = None,
+        names: Sequence[str] | None = None,
+        dtype: torch.dtype = torch.int64,
+        device: str | torch.device = "cpu",
+    ) -> "Table":
+        """Build a table on ``device`` from a row-major ``[nrow, ncol]`` host array."""
+        if array.ndim != 2:
+            raise ValueError(f"expected 2D [nrow, ncol] array, got {array.shape}")
+        nrow, ncol = array.shape
+        capacity = nrow if capacity is None else capacity
+        if capacity < nrow:
+            raise ValueError(f"capacity {capacity} < nrow {nrow}")
+        names = _default_names(ncol) if names is None else tuple(names)
+        buf = torch.zeros((capacity, ncol), dtype=dtype)
+        buf[:nrow] = torch.tensor(array)
+        return cls(
+            data=buf.to(device),
+            num_rows=torch.tensor(nrow, dtype=torch.int32, device=device),
+            names=names,
+        )
+
+    @classmethod
+    def empty(
+        cls,
+        ncol: int,
+        capacity: int,
+        *,
+        names=None,
+        dtype: torch.dtype = torch.int64,
+        device: str | torch.device = "cpu",
+    ) -> "Table":
+        return cls(
+            data=torch.zeros((capacity, ncol), dtype=dtype, device=device),
+            num_rows=torch.tensor(0, dtype=torch.int32, device=device),
+            names=_default_names(ncol) if names is None else tuple(names),
+        )
+
+    def valid_mask(self) -> torch.Tensor:
+        """Boolean ``[capacity]`` mask of valid rows."""
+        iota = torch.arange(self.capacity, dtype=torch.int32, device=self.device)
+        return iota < self.num_rows
+
+    def masked_keys(self, col: int) -> torch.Tensor:
+        """Column ``col`` with padding rows replaced by the max sentinel."""
+        sent = torch.tensor(key_sentinel(self.dtype), dtype=self.dtype, device=self.device)
+        return torch.where(self.valid_mask(), self.data[:, col], sent)
+
+    def to_numpy(self) -> np.ndarray:
+        """Row-major ``[num_rows, ncol]`` host array of the valid rows."""
+        n = int(self.num_rows)
+        return self.data[:n].cpu().numpy().copy()
+
+    def with_capacity(self, capacity: int) -> "Table":
+        """Return a copy padded with zeros / truncated to a new capacity."""
+        cap, ncol = self.data.shape
+        if capacity == cap:
+            return self
+        if capacity > cap:
+            pad = self.data.new_zeros((capacity - cap, ncol))
+            data = torch.cat([self.data, pad], dim=0)
+        else:
+            data = self.data[:capacity]
+        return dataclasses.replace(self, data=data)

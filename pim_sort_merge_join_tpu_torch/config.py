@@ -1,0 +1,141 @@
+"""Runtime engine configuration (PyTorch port of `pim_sort_merge_join_tpu/config.py`).
+
+The field set and defaults equal the JAX package's `EngineConfig`, so a
+config carries across unchanged (`convert.config_from_reference`). Values
+that select a path this port does not have yet raise `NotImplementedError`
+naming the ROADMAP item that brings it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+import numpy as np
+import torch
+
+PredicateOp = Literal[">", ">=", "<", "<=", "==", "!="]
+
+# numpy dtype name -> torch dtype. The port carries integer tables only.
+TORCH_DTYPES = {"int32": torch.int32, "int64": torch.int64}
+
+
+@dataclasses.dataclass(frozen=True)
+class Predicate:
+    """A single-column comparison predicate, `col <op> value`."""
+
+    col: int = 0
+    op: PredicateOp = ">"
+    value: int = 5000
+
+    def describe(self) -> str:
+        return f"col{self.col + 1} {self.op} {self.value}"
+
+
+# Values the port does not support yet, and where ROADMAP.md tracks them.
+_UNSUPPORTED = {
+    "join_mode": ("inner", 'ROADMAP, "The other single-chip operators"'),
+    "join_algorithm": ("hash", 'ROADMAP, "The other single-chip operators"'),
+    "sort_algorithm": (
+        "pallas_bitonic",
+        'ROADMAP, TPU kernel 6 (ops/pallas/sort_kernel.py)',
+    ),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """All runtime tunables of the engine; defaults equal the JAX package's.
+
+    Fields that only the multi-device path reads (mesh, exchange, skew) are
+    kept so that any reference config carries across; this port's
+    single-device path ignores them.
+    """
+
+    predicate1: Predicate = Predicate()
+    predicate2: Predicate = Predicate()
+    join_key1: int = 0
+    join_key2: int = 0
+    join_mode: str = "one_to_one"
+    dtype: str = "int64"
+    donate_inputs: bool = False
+    join_algorithm: str = "sort_merge"
+    # Every value other than "pallas_bitonic" means: the hand-written
+    # kernels for CUDA tensors, the plain torch versions for CPU tensors.
+    sort_algorithm: str = "auto"
+    partition_scheme: str = "range"
+    narrow_keys: bool | str = "auto"
+    narrow_data: bool | str = "auto"
+    mesh_axis: str = "p"
+    exchange_slack: float = 2.0
+    splitter_sample: int = 1024
+    exchange_chunks: int = 4
+    heavy_hitter_fraction: float | None = None
+    heavy_gather_capacity: int | None = None
+    join_slack: float = 1.0
+    collect_metrics: bool = True
+    debug_log: bool = False
+    checkpoint_dir: str | None = None
+
+    def __post_init__(self):
+        if self.dtype not in TORCH_DTYPES:
+            raise NotImplementedError(
+                f"dtype={self.dtype!r}: the port carries int32/int64 tables "
+                "only (ROADMAP, \"Float keys and general num_keys=2 on CUDA\")"
+            )
+        for name in ("narrow_keys", "narrow_data"):
+            val = getattr(self, name)
+            if val not in (True, False, "auto"):
+                raise ValueError(
+                    f"{name} must be True, False, or 'auto' (got {val!r})"
+                )
+        for name, (bad, item) in _UNSUPPORTED.items():
+            if getattr(self, name) == bad:
+                raise NotImplementedError(f"{name}={bad!r}: not ported yet, {item}")
+        if self.debug_log:
+            raise NotImplementedError(
+                "debug_log: not ported yet, ROADMAP, \"The native CSV shim and the launcher\""
+            )
+        if self.checkpoint_dir is not None:
+            raise NotImplementedError(
+                "checkpoint_dir: not ported yet, ROADMAP, \"Checkpoint/resume\""
+            )
+
+    def torch_dtype(self) -> torch.dtype:
+        return TORCH_DTYPES[self.dtype]
+
+    def narrowable(self) -> bool:
+        """Whether narrow-key dispatch can apply to this dtype at all."""
+        return self.torch_dtype() == torch.int64
+
+    def resolve_narrow(self, *key_columns) -> "EngineConfig":
+        """Return a copy with ``narrow_keys`` resolved to a concrete bool.
+
+        ``key_columns`` are host numpy arrays of join-key values (one per
+        table); "auto" resolves to True iff every value fits the int32
+        narrowing window [INT32_MIN, INT32_MAX) (ops/join.py:_narrow32).
+        """
+        if self.narrow_keys != "auto":
+            return self
+        resolved = False
+        if self.narrowable() and key_columns:
+            resolved = all(_fits_int32(c) for c in key_columns)
+        return dataclasses.replace(self, narrow_keys=resolved)
+
+    def resolve_narrow_data(self, *tables) -> "EngineConfig":
+        """Return a copy with ``narrow_data`` resolved to a concrete bool.
+
+        ``tables`` are host numpy row arrays (whole tables); "auto" resolves
+        to True iff EVERY value in every table fits the int32 window.
+        """
+        if self.narrow_data != "auto":
+            return self
+        resolved = False
+        if self.narrowable() and tables:
+            resolved = all(_fits_int32(t) for t in tables)
+        return dataclasses.replace(self, narrow_data=resolved)
+
+
+def _fits_int32(a: np.ndarray) -> bool:
+    info = np.iinfo(np.int32)
+    return a.size == 0 or bool(a.min() >= info.min and a.max() < info.max)

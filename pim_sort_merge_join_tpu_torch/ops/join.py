@@ -1,0 +1,212 @@
+"""The fused 1:1 merge-join (PyTorch port of `ops/join.py`, main path).
+
+`_one_to_one_merged` keeps the JAX package's merged-domain design: one
+2-key merge sort of both key columns with their concat positions, the
+join-rank scan that gives every merged element its output slot, one
+un-merge sort back to row positions, and one emit sort per table that
+places each row at its slot. Output rows, their order and `num_rows` equal
+the JAX package's exactly (1:1 semantics of join.c:160-173: the k-th
+duplicate of a key in table 1 pairs with the k-th duplicate in table 2).
+
+On CUDA tensors the four sorts run the hand-written `hbm_sort` kernels and
+the scan runs the `join_scan` kernels (`ops/kernels/`); on CPU tensors
+their plain torch versions run.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pim_sort_merge_join_tpu_torch.columnar.table import Table, key_sentinel
+from pim_sort_merge_join_tpu_torch.ops.kernels import join_scan
+from pim_sort_merge_join_tpu_torch.ops.sort import stable_key_sort
+
+
+def _out_names(t1: Table, t2: Table, key2: int) -> tuple:
+    ncol = t1.ncol + t2.ncol - 1
+    return tuple(f"col{i + 1}" for i in range(ncol))
+
+
+def _head_broadcast(head: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """Broadcast each run head's value over its run.
+
+    ``vals`` must be globally non-decreasing (true for every prefix count
+    used here), which makes a plain running max correct.
+    """
+    return torch.cummax(torch.where(head, vals, 0), dim=0).values
+
+
+def _narrow32(k: torch.Tensor) -> torch.Tensor:
+    """Map 64-bit integer keys whose values fit int32 onto int32.
+
+    Order-preserving: the caller guarantees every valid key lies in
+    [INT32_MIN, INT32_MAX), and the 64-bit sentinel maps to the 32-bit one.
+    """
+    sent32 = torch.iinfo(torch.int32).max
+    return torch.where(k == key_sentinel(k.dtype), sent32, k).to(torch.int32)
+
+
+def _merged_dest_plain(mkeys: torch.Tensor, mpos: torch.Tensor, cap1: int):
+    """Output slot per merged element, as plain torch scans (any device).
+
+    Line-for-line port of the JAX `_merged_dest_xla`. Within an equal-key
+    run every side-1 element precedes every side-2 element, so side-2
+    matches and the witness prefix are forward scans; the side-1 match test
+    needs its run's side-2 total, one backward broadcast. Returns
+    ``(dest int32 [n], num_out int32 0-d)``; dropped elements get ``n``.
+    """
+    n = mkeys.shape[0]
+    dev = mkeys.device
+    is2 = (mpos >= cap1).to(torch.int32)
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    neq = mkeys[1:] != mkeys[:-1]
+    head = torch.cat([one, neq])
+    tail = torch.cat([neq, one])
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    c2 = torch.cumsum(is2, 0, dtype=torch.int32)
+    run_start = _head_broadcast(head, iota)
+    base2 = _head_broadcast(head, c2 - is2)
+    jr = iota - run_start
+    s2r = c2 - base2
+    rank = torch.where(is2 == 1, s2r - 1, jr)
+    live = mkeys != key_sentinel(mkeys.dtype)
+    matched2 = (is2 == 1) & (rank < (jr + 1 - s2r)) & live
+    m2cum = torch.cumsum(matched2.to(torch.int32), 0, dtype=torch.int32)
+    end2 = torch.flip(
+        torch.cummin(torch.flip(torch.where(tail, c2, n), [0]), dim=0).values, [0]
+    )
+    matched1 = (is2 == 0) & (rank < (end2 - base2)) & live
+    dest = torch.where(matched2, m2cum - 1, torch.where(matched1, m2cum + rank, n))
+    num_out = matched2.sum(dtype=torch.int32)
+    return dest, num_out
+
+
+def _merged_dest(mkeys: torch.Tensor, mpos: torch.Tensor, cap1: int):
+    """The merged-domain slot computation: the `join_scan` kernels on CUDA
+    tensors at every size and key width, `_merged_dest_plain` on CPU."""
+    return join_scan.join_scan_dest(mkeys, mpos, cap1)
+
+
+def _one_to_one_merged(
+    t1: Table,
+    t2: Table,
+    key2: int,
+    k1: torch.Tensor,
+    k2: torch.Tensor,
+    *,
+    narrow: bool = False,
+    narrow_data: bool = False,
+    sort_algorithm: str = "auto",
+) -> Table:
+    """1:1 join core over pre-masked key vectors; sortedness NOT required.
+
+    1. merge both key columns with their concat position (one 2-key sort,
+       unique keys; t1 first on ties); the scan gives each element its
+       output slot or the drop value;
+    2. un-merge the slots back to row positions (one sort keyed on the
+       carried position, a permutation inverse);
+    3. per table, sort rows by output slot: matched rows land densely at
+       the front in key order.
+    """
+    cap1, cap2 = t1.capacity, t2.capacity
+    n = cap1 + cap2
+    dev = t1.device
+
+    # `narrow is True`: an unresolved "auto" takes the wide path.
+    if narrow is True and k1.dtype == torch.int64:
+        k1, k2 = _narrow32(k1), _narrow32(k2)
+
+    # --- 1. merge the key columns (t1 wins ties) ---------------------------
+    keys = torch.cat([k1, k2])
+    pos = torch.arange(n, dtype=torch.int32, device=dev)
+    mkeys, mpos = stable_key_sort(
+        (keys, pos), algorithm=sort_algorithm, num_keys=2, unique_keys=True
+    )
+    dest, num_out = _merged_dest(mkeys, mpos, cap1)
+
+    # --- 2. un-merge: slots back to original row positions -----------------
+    _, dest_by_pos = stable_key_sort(
+        (mpos, dest), algorithm=sort_algorithm, unique_keys=True
+    )
+    dest1 = dest_by_pos[:cap1]
+    dest2 = dest_by_pos[cap1:]
+
+    # --- 3. emit: permute each table's rows to their output slots ----------
+    # Dropped rows (dest = n) are uniquified with their row index so both
+    # emit sorts have unique keys; their contents are zeroed below.
+    # narrow_data (resolved by the pipeline: every table value fits int32):
+    # payload columns ride the emit sorts as int32 and are cast back after.
+    def _plane(col: torch.Tensor) -> torch.Tensor:
+        if narrow_data is True and col.dtype == torch.int64:
+            return col.to(torch.int32)
+        return col.contiguous()
+
+    def _uniq(d: torch.Tensor, cap: int) -> torch.Tensor:
+        iota = torch.arange(cap, dtype=torch.int32, device=dev)
+        return torch.where(d >= n, n + iota, d)
+
+    ops1 = stable_key_sort(
+        (_uniq(dest1, cap1),) + tuple(_plane(t1.data[:, c]) for c in range(t1.ncol)),
+        algorithm=sort_algorithm,
+        unique_keys=True,
+    )
+    part1 = torch.stack(ops1[1:], dim=1).to(t1.dtype)[:cap1]
+    keep2 = [c for c in range(t2.ncol) if c != key2]
+    ops2 = stable_key_sort(
+        (_uniq(dest2, cap2),) + tuple(_plane(t2.data[:, c]) for c in keep2),
+        algorithm=sort_algorithm,
+        unique_keys=True,
+    )
+    part2_full = torch.stack(ops2[1:], dim=1).to(t2.dtype)
+    if cap2 >= cap1:
+        part2 = part2_full[:cap1]
+    else:
+        pad = part2_full.new_zeros((cap1 - cap2, t2.ncol - 1))
+        part2 = torch.cat([part2_full, pad], dim=0)
+    valid_out = torch.arange(cap1, dtype=torch.int32, device=dev) < num_out
+    data = torch.cat([part1, part2], dim=1)
+    data = torch.where(valid_out[:, None], data, 0)
+    return Table(data=data, num_rows=num_out, names=_out_names(t1, t2, key2))
+
+
+def merge_join_one_to_one(
+    t1: Table,
+    t2: Table,
+    key1: int,
+    key2: int,
+    *,
+    narrow: bool = False,
+    narrow_data: bool = False,
+    sort_algorithm: str = "auto",
+) -> Table:
+    """Reference-semantics 1:1 merge join; output capacity is t1's."""
+    return _one_to_one_merged(
+        t1, t2, key2, t1.masked_keys(key1), t2.masked_keys(key2),
+        narrow=narrow, narrow_data=narrow_data, sort_algorithm=sort_algorithm,
+    )
+
+
+def filter_join_one_to_one(
+    t1: Table,
+    t2: Table,
+    key1: int,
+    key2: int,
+    mask1: torch.Tensor,
+    mask2: torch.Tensor,
+    *,
+    narrow: bool = False,
+    narrow_data: bool = False,
+    sort_algorithm: str = "auto",
+) -> Table:
+    """Fused filter + sort + 1:1 join of two UNSORTED tables.
+
+    ``mask1``/``mask2`` select the surviving rows (already AND-ed with
+    validity); masked-out rows get sentinel keys and never match. Output
+    equals the staged filter -> sort -> join path byte for byte.
+    """
+    k1 = torch.where(mask1, t1.data[:, key1], key_sentinel(t1.dtype))
+    k2 = torch.where(mask2, t2.data[:, key2], key_sentinel(t2.dtype))
+    return _one_to_one_merged(
+        t1, t2, key2, k1, k2, narrow=narrow, narrow_data=narrow_data,
+        sort_algorithm=sort_algorithm,
+    )
