@@ -9,14 +9,22 @@ Phases, in order; any failure exits non-zero:
   1. card details (nvidia-smi, torch, CUDA, nvcc);
   2. build the kernels from `pim_sort_merge_join_tpu_torch/csrc/` (first use);
   3. every kernel against its plain torch version on the card, exactly:
-     adversarial cases, then the main path's shapes at 10M rows/table,
-     timed with CUDA events (median of 3 after a warmup);
+     adversarial cases, then the shapes the paths give them, timed with
+     CUDA events (median of 3 after a warmup): the fused path's at 10M
+     rows/table, the bitonic sort at its 2^21 cap, and the radix tile sort
+     at the merge sort's 20M elements, beside the chunk sort. The radix
+     sort then forms the runs of that merge sort (run formation: radix
+     runs + merge passes), which must equal the `hbm_sort` permutation;
   4. the query at 100k rows/table through `QueryPipeline.run_csv`: rows and
      CSV bytes equal the numpy oracle's;
-  5. the query at 10M rows/table through `run_tables` (the main path): the
-     whole output buffer equals the plain path on CPU tensors, and every
-     kernel of the path was launched in that run;
-  6. the same at 1M rows/table with keys offset by 2^40 (64-bit keys).
+  5. the fused query at 10M rows/table through `run_tables` (the main
+     path): the whole output buffer equals the plain path on CPU tensors;
+  6. the same at 1M rows/table with keys offset by 2^40 (64-bit keys);
+  7. the staged inner join at 10M rows/table (duplicate keys, the
+     `hbm_sort` table sorts), then at 2M rows/table with the bitonic table
+     sorts, each against the plain path on CPU tensors.
+Each path runs with the launch counts set to 0 just before and read just
+after: exactly the kernels of that path must have run.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and the result JSON. Without a CUDA device, or without the
@@ -154,6 +162,55 @@ def scan_cases(rng):
     return cases
 
 
+I32MIN, I32MAX = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+
+
+def bitonic_cases(rng):
+    """(name, keys, vals) as int32 numpy arrays, for `sort_pairs` (any length)."""
+    cases = []
+    for n in (1, 255, 256, 300, 1024, 5000, 2**16 + 3, 2**21):
+        cases.append((f"random_{n}", rng.integers(0, 1 << 30, n).astype(np.int32),
+                      np.arange(n, dtype=np.int32)))
+    n = 20000
+    iota = np.arange(n, dtype=np.int32)
+    cases.append(("few_distinct", rng.integers(0, 4, n).astype(np.int32), iota))
+    extremes = np.array([I32MIN, I32MIN + 1, 0, I32MAX - 1, I32MAX], np.int32)
+    cases.append(("int32_extremes", rng.choice(extremes, n), iota))
+    cases.append(("negative_keys_random_vals", rng.integers(-(1 << 30), 0, n).astype(np.int32),
+                  rng.integers(-50, 50, n).astype(np.int32)))
+    return cases
+
+
+def radix_cases(rng):
+    """(name, operands as int32 numpy arrays, tile, digit_bits, key_bits)."""
+    cases = []
+    for i, (tile, digit_bits, key_bits) in enumerate(
+        (t, d, b) for t in (256, 512, 2048) for d in (4, 8) for b in (20, 32)
+    ):
+        n = 6 * tile
+        lo = 0 if key_bits < 32 else I32MIN  # negative keys sort after the others
+        key = rng.integers(lo, 1 << min(key_bits, 31), n).astype(np.int32)
+        key[rng.random(n) < 0.1] = I32MAX
+        payloads = [rng.integers(I32MIN, I32MAX, n).astype(np.int32),
+                    np.arange(n, dtype=np.int32)][: i % 3]
+        cases.append((f"t{tile}_d{digit_bits}_b{key_bits}_ops{1 + i % 3}", [key] + payloads,
+                      tile, digit_bits, key_bits))
+    return cases
+
+
+def plain_sort_pairs(keys, vals):
+    """`sort_pairs` with the plain network, on the tensors' own device."""
+    import torch
+
+    from pim_sort_merge_join_tpu_torch.ops.kernels import bitonic_sort as bs
+
+    n = keys.shape[0]
+    pad = torch.full((max(bs._next_pow2(n), bs.MIN_WIDTH) - n,), I32MAX, dtype=torch.int32,
+                     device=keys.device)
+    k, v = bs.bitonic_sort_plain(torch.cat([keys, pad]), torch.cat([vals, pad]))
+    return k[:n], v[:n]
+
+
 # --- phases -----------------------------------------------------------------
 
 
@@ -190,8 +247,12 @@ def phase_adversarial(rng) -> dict[str, int]:
     from pim_sort_merge_join_tpu_torch.ops.kernels import hbm_sort as hs
     from pim_sort_merge_join_tpu_torch.ops.kernels import join_scan as js
 
-    errs = {"sort": 0, "scan": 0}
+    from pim_sort_merge_join_tpu_torch.ops.kernels import bitonic_sort as bs
+    from pim_sort_merge_join_tpu_torch.ops.kernels import radix_sort as rs
+
+    errs = {"sort": 0, "scan": 0, "bitonic": 0, "radix": 0}
     sorts, scans = sort_cases(rng), scan_cases(rng)
+    bitonics, radixes = bitonic_cases(rng), radix_cases(rng)
     for name, arrays, num_keys in sorts:
         ops = tuple(torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays)
         err = max_abs_err(hs.hbm_sort(ops, num_keys), hs.hbm_sort_plain(ops, num_keys))
@@ -202,8 +263,20 @@ def phase_adversarial(rng) -> dict[str, int]:
         err = max_abs_err(js.join_scan_cuda(mk, mp, cap1), _merged_dest_plain(mk, mp, cap1))
         check(err == 0, f"join_scan case {name}: kernel differs from plain (max err {err})")
         errs["scan"] = max(errs["scan"], err)
+    for name, keys, vals in bitonics:
+        k, v = torch.from_numpy(keys).cuda(), torch.from_numpy(vals).cuda()
+        err = max_abs_err(bs.sort_pairs(k, v), plain_sort_pairs(k, v))
+        check(err == 0, f"bitonic case {name}: kernel differs from plain (max err {err})")
+        errs["bitonic"] = max(errs["bitonic"], err)
+    for name, arrays, tile, digit_bits, key_bits in radixes:
+        ops = tuple(torch.from_numpy(a).cuda() for a in arrays)
+        kw = dict(tile=tile, digit_bits=digit_bits, key_bits=key_bits)
+        err = max_abs_err(rs.radix_tile_sort(ops, **kw), rs.radix_tile_sort_plain(ops, **kw))
+        check(err == 0, f"radix case {name}: kernel differs from plain (max err {err})")
+        errs["radix"] = max(errs["radix"], err)
     torch.cuda.synchronize()
-    log(f"adversarial: {len(sorts)} sort cases, {len(scans)} scan cases equal")
+    log(f"adversarial: {len(sorts)} sort, {len(scans)} scan, {len(bitonics)} bitonic, "
+        f"{len(radixes)} radix cases equal")
     return errs
 
 
@@ -286,6 +359,81 @@ def phase_main_path_shapes(r1, r2, cfg) -> dict:
     for key in ("merge_sort_err", "scan_err", "unmerge_sort_err", "emit_sort_err", "gather_err"):
         check(rec[key] == 0, f"main-path shape {key} = {rec[key]}: kernel differs from plain")
     log("main-path shapes (ms, kernel vs plain): " + json.dumps(rec))
+    rec.update(phase_run_formation(keys, pos))
+    return rec
+
+
+def radix_runs_merged(kp, pp, n: int):
+    """Run formation by the radix tile sort, then the `hbm_sort` merge
+    passes: the stable sort permutation of the first n of ``kp``."""
+    from pim_sort_merge_join_tpu_torch.ops.kernels import hbm_sort as hs
+    from pim_sort_merge_join_tpu_torch.ops.kernels import radix_sort as rs
+
+    rk, rp = rs.radix_tile_sort((kp, pp), tile=hs._fn("smj_hbm_sort_chunk_size")(),
+                                digit_bits=8, key_bits=32)
+    # The merge passes take the chunk sort's element: the key biased to
+    # unsigned order in 64 bits, and the position.
+    return hs.merge_passes(rk.long() + 2**31, rp)[:n]
+
+
+def phase_run_formation(keys, pos) -> dict:
+    """The radix tile sort at the fused merge sort's shape (20M non-negative
+    int32 keys + positions), at tiles 2048 and 512, beside its plain version
+    and the chunk sort; then the run-formation path against `hbm_sort`."""
+    import torch
+
+    from pim_sort_merge_join_tpu_torch.ops import kernels
+    from pim_sort_merge_join_tpu_torch.ops.kernels import hbm_sort as hs
+    from pim_sort_merge_join_tpu_torch.ops.kernels import radix_sort as rs
+
+    n, chunk = keys.shape[0], hs._fn("smj_hbm_sort_chunk_size")()
+    npad = -(-n // chunk) * chunk
+    kp = torch.cat([keys, torch.full((npad - n,), I32MAX, dtype=torch.int32, device="cuda")])
+    pp = torch.arange(npad, dtype=torch.int32, device="cuda")
+    rec = {"radix_n": npad}
+    for tile in (chunk, 512):
+        kw = dict(tile=tile, digit_bits=8, key_bits=32)
+        rec[f"radix{tile}_err"] = max_abs_err(rs.radix_tile_sort((kp, pp), **kw),
+                                              rs.radix_tile_sort_plain((kp, pp), **kw))
+        rec[f"radix{tile}_ms"] = time_ms(lambda _: rs.radix_tile_sort((kp, pp), **kw))
+        rec[f"radix{tile}_plain_ms"] = time_ms(lambda _: rs.radix_tile_sort_plain((kp, pp), **kw))
+    rec["chunk_sort_ms"] = time_ms(lambda _: hs.chunk_sort(keys, pos, hs.KIND_I32_PAIR))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    perm = radix_runs_merged(kp, pp, n)
+    torch.cuda.synchronize()
+    rec["launches"] = kernels.launch_counts()
+    ran = {name for name, c in rec["launches"].items() if c > 0}
+    check(ran == {"radix_tile", "hbm_sort_merge"}, f"run formation launched {sorted(ran)}")
+    rec["run_formation_err"] = max_abs_err(
+        (perm,), (hs.sort_permutation(keys, pos, hs.KIND_I32_PAIR),))
+    rec["run_formation_ms"] = time_ms(lambda _: radix_runs_merged(kp, pp, n))
+    rec["sort_permutation_ms"] = time_ms(
+        lambda _: hs.sort_permutation(keys, pos, hs.KIND_I32_PAIR))
+    for key in (f"radix{chunk}_err", "radix512_err", "run_formation_err"):
+        check(rec[key] == 0, f"run formation {key} = {rec[key]}: kernel differs from plain")
+    log("run formation (ms, radix vs plain vs chunk sort): " + json.dumps(rec))
+    return rec
+
+
+def phase_bitonic_shape(rng) -> dict:
+    """The bitonic sort at its cap: the 2M-rows/table table sort, which
+    `sort_pairs` pads to 2^21 pairs."""
+    import torch
+
+    from pim_sort_merge_join_tpu_torch.ops.kernels import bitonic_sort as bs
+
+    n = 2_000_000
+    keys = torch.from_numpy(rng.integers(1, 3 * n, n).astype(np.int32)).cuda()
+    keys[-n // 20:] = I32MAX  # the filtered-out tail of a compacted table
+    vals = torch.arange(n, dtype=torch.int32, device="cuda")
+    rec = {"bitonic_width": bs._next_pow2(n)}
+    rec["bitonic_err"] = max_abs_err(bs.sort_pairs(keys, vals), plain_sort_pairs(keys, vals))
+    rec["bitonic_ms"] = time_ms(lambda _: bs.sort_pairs(keys, vals))
+    rec["bitonic_plain_ms"] = time_ms(lambda _: plain_sort_pairs(keys, vals))
+    torch.cuda.synchronize()
+    check(rec["bitonic_err"] == 0, f"bitonic at 2^21: kernel differs from plain ({rec['bitonic_err']})")
+    log("bitonic at its cap (ms, kernel vs plain): " + json.dumps(rec))
     return rec
 
 
@@ -336,8 +484,30 @@ def host_ms(fn, reps: int = 3) -> float:
     return statistics.median(times)
 
 
-def phase_slice(r1, r2, cfg, *, expect_narrow: bool, label: str):
-    """run_tables on CUDA vs the plain path on CPU; returns (launches, ms, rows)."""
+FUSED_KERNELS = {"hbm_sort_chunk", "hbm_sort_merge", "hbm_sort_gather",
+                 "join_scan_forward", "join_scan_backward"}
+STAGED_KERNELS = {"hbm_sort_chunk", "hbm_sort_merge", "hbm_sort_gather"}
+STAGED_BITONIC_KERNELS = STAGED_KERNELS | {"bitonic_local", "bitonic_global"}
+
+
+def staged_inputs(n: int, sort_algorithm: str):
+    """The staged inner join: generate_table(n, seed=1/2) with uniform keys
+    (duplicates on both sides), predicate > 3N/20 on both."""
+    from pim_sort_merge_join_tpu_torch import EngineConfig, Predicate
+    from pim_sort_merge_join_tpu_torch.columnar.generate import generate_table
+
+    r1 = generate_table(n, seed=1, key_distribution="uniform")
+    r2 = generate_table(n, seed=2, key_distribution="uniform")
+    thr = (3 * n) // 20
+    cfg = EngineConfig(join_mode="inner", sort_algorithm=sort_algorithm,
+                       predicate1=Predicate(0, ">", thr), predicate2=Predicate(0, ">", thr))
+    return r1, r2, cfg
+
+
+def phase_slice(r1, r2, cfg, *, expect_narrow: bool, label: str, kernels_of_path: set):
+    """run_tables on CUDA vs the plain path on CPU; returns (launches, ms, rows).
+
+    Exactly ``kernels_of_path`` must have been launched in the CUDA run."""
     import torch
 
     from pim_sort_merge_join_tpu_torch import QueryPipeline, Table
@@ -353,8 +523,9 @@ def phase_slice(r1, r2, cfg, *, expect_narrow: bool, label: str):
     launches = kernels.launch_counts()
     check(pipe.resolved_narrow_keys is expect_narrow,
           f"{label}: narrow_keys resolved {pipe.resolved_narrow_keys}, expected {expect_narrow}")
-    for name, count in launches.items():
-        check(count > 0, f"{label}: kernel {name} was not launched on the main path")
+    ran = {name for name, count in launches.items() if count > 0}
+    check(ran == kernels_of_path,
+          f"{label}: launched {sorted(ran)}, the path's kernels are {sorted(kernels_of_path)}")
     ref = QueryPipeline(cfg).run_tables(Table.from_numpy(r1), Table.from_numpy(r2))
     rows = int(out.num_rows)
     check(rows == int(ref.num_rows) and rows > 0, f"{label}: num_rows {rows} vs plain {int(ref.num_rows)}")
@@ -387,12 +558,25 @@ def main() -> int:
     errs = phase_adversarial(rng)
     r1, r2, cfg = slice_inputs(10_000_000)
     shapes = phase_main_path_shapes(r1, r2, cfg)
+    torch.cuda.empty_cache()
+    bitonic = phase_bitonic_shape(rng)
     phase_csv_100k()
-    launches, ms10, rows10 = phase_slice(r1, r2, cfg, expect_narrow=True, label="10M")
+    launches, ms10, rows10 = phase_slice(r1, r2, cfg, expect_narrow=True, label="10M",
+                                         kernels_of_path=FUSED_KERNELS)
     del r1, r2
     torch.cuda.empty_cache()
     w1, w2, wcfg = slice_inputs(1_000_000, key_offset=2**40)
-    phase_slice(w1, w2, wcfg, expect_narrow=False, label="1M wide keys")
+    phase_slice(w1, w2, wcfg, expect_narrow=False, label="1M wide keys",
+                kernels_of_path=FUSED_KERNELS)
+    a1, a2, acfg = staged_inputs(10_000_000, "auto")
+    _, msa, rowsa = phase_slice(a1, a2, acfg, expect_narrow=True, label="staged inner 10M",
+                                kernels_of_path=STAGED_KERNELS)
+    del a1, a2
+    torch.cuda.empty_cache()
+    b1, b2, bcfg = staged_inputs(2_000_000, "pallas_bitonic")
+    launches_b, msb, rowsb = phase_slice(b1, b2, bcfg, expect_narrow=True,
+                                         label="staged inner 2M bitonic",
+                                         kernels_of_path=STAGED_BITONIC_KERNELS)
 
     src = "pim_sort_merge_join_tpu_torch/csrc/"
     ref = "pim_sort_merge_join_tpu/ops/pallas/"
@@ -419,8 +603,18 @@ def main() -> int:
          "replaces": ref + "join_scan.py:216", "launches": launches["join_scan_backward"],
          "max_abs_err": max(errs["scan"], shapes["scan_err"]), "ms": shapes["backward_ms"],
          "plain_ms": shapes["scan_plain_ms"]},
+        {"name": "bitonic_sort", "route": "cuda", "source": src + "bitonic_sort.cu",
+         "replaces": ref + "sort_kernel.py:138",
+         "launches": launches_b["bitonic_local"] + launches_b["bitonic_global"],
+         "max_abs_err": max(errs["bitonic"], bitonic["bitonic_err"]), "ms": bitonic["bitonic_ms"],
+         "plain_ms": bitonic["bitonic_plain_ms"]},
+        {"name": "radix_tile_sort", "route": "cuda", "source": src + "radix_sort.cu",
+         "replaces": ref + "radix_sort.py:78", "launches": shapes["launches"]["radix_tile"],
+         "max_abs_err": max(errs["radix"], shapes["radix2048_err"], shapes["radix512_err"]),
+         "ms": shapes["radix2048_ms"], "plain_ms": shapes["radix2048_plain_ms"]},
     ]
-    log(f"slice 10M: {rows10} rows in {ms10:.3f} ms")
+    log(f"slice 10M: {rows10} rows in {ms10:.3f} ms; staged inner 10M: {rowsa} rows in "
+        f"{msa:.3f} ms; staged inner 2M bitonic: {rowsb} rows in {msb:.3f} ms")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

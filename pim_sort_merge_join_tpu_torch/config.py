@@ -34,12 +34,7 @@ class Predicate:
 
 # Values the port does not support yet, and where ROADMAP.md tracks them.
 _UNSUPPORTED = {
-    "join_mode": ("inner", 'ROADMAP, "The other single-chip operators"'),
     "join_algorithm": ("hash", 'ROADMAP, "The other single-chip operators"'),
-    "sort_algorithm": (
-        "pallas_bitonic",
-        'ROADMAP, TPU kernel 6 (ops/pallas/sort_kernel.py)',
-    ),
 }
 
 
@@ -60,8 +55,11 @@ class EngineConfig:
     dtype: str = "int64"
     donate_inputs: bool = False
     join_algorithm: str = "sort_merge"
-    # Every value other than "pallas_bitonic" means: the hand-written
-    # kernels for CUDA tensors, the plain torch versions for CPU tensors.
+    # "pallas_bitonic" selects the bitonic kernel for the staged path's
+    # table sorts (`ops/sort.sort_by_key`) and means "auto" for the join's
+    # internal sorts, as in the JAX package. Every other value means the
+    # `hbm_sort` kernels. Either way: the hand-written kernels for CUDA
+    # tensors, their plain torch versions for CPU tensors.
     sort_algorithm: str = "auto"
     partition_scheme: str = "range"
     narrow_keys: bool | str = "auto"

@@ -1,10 +1,11 @@
 """The query pipeline on one device (port of `engine/pipeline.py`).
 
-`pipeline_core` is the fused filter -> sort -> 1:1 join dataflow;
-`QueryPipeline` drives it on tables (`run_tables`, with the device narrow
-probe) or on CSV paths (`run_csv`). PyTorch runs eagerly, so there is no
-compile cache. The staged branch and resumable runs come later (ROADMAP,
-"The staged path and sort_by_key" and "Checkpoint/resume").
+`pipeline_core` is the filter -> sort -> join dataflow: fused for the
+sort-merge 1:1 join, staged (compact, sort each table, join) for the
+sort-merge inner join. `QueryPipeline` drives it on tables (`run_tables`,
+with the device narrow probe) or on CSV paths (`run_csv`). PyTorch runs
+eagerly, so there is no compile cache. Hash joins and resumable runs come
+later (ROADMAP, "The other single-chip operators" and "Checkpoint/resume").
 """
 
 from __future__ import annotations
@@ -21,20 +22,44 @@ from pim_sort_merge_join_tpu_torch.engine.errors import JoinOverflowError
 from pim_sort_merge_join_tpu_torch.engine.metrics import MetricsCollector
 from pim_sort_merge_join_tpu_torch.ops import filter as filter_ops
 from pim_sort_merge_join_tpu_torch.ops import join as join_ops
+from pim_sort_merge_join_tpu_torch.ops import sort as sort_ops
 from pim_sort_merge_join_tpu_torch.utils import validate
 
 
 def pipeline_core(t1: Table, t2: Table, config: EngineConfig) -> Table:
     """The filter -> sort -> join dataflow on two tables of one device."""
-    if not (config.join_algorithm == "sort_merge" and config.join_mode == "one_to_one"):
+    if config.join_algorithm != "sort_merge":
         raise NotImplementedError(
-            "only the fused sort-merge one_to_one path is ported "
-            "(ROADMAP, \"The staged path and sort_by_key\")"
+            f"join_algorithm={config.join_algorithm!r}: not ported yet "
+            "(ROADMAP, \"The other single-chip operators\")"
         )
-    m1 = filter_ops.predicate_mask(t1, config.predicate1)
-    m2 = filter_ops.predicate_mask(t2, config.predicate2)
-    return join_ops.filter_join_one_to_one(
-        t1, t2, config.join_key1, config.join_key2, m1, m2,
+    if config.join_mode == "one_to_one":
+        # Fused path: filtering is a key mask and the join's slot-permutation
+        # sorts subsume the standalone compaction and table sorts.
+        m1 = filter_ops.predicate_mask(t1, config.predicate1)
+        m2 = filter_ops.predicate_mask(t2, config.predicate2)
+        return join_ops.filter_join_one_to_one(
+            t1, t2, config.join_key1, config.join_key2, m1, m2,
+            narrow=config.narrow_keys,
+            narrow_data=config.narrow_data,
+            sort_algorithm=config.sort_algorithm,
+        )
+    f1 = filter_ops.apply_filter(t1, config.predicate1)
+    f2 = filter_ops.apply_filter(t2, config.predicate2)
+    s1 = sort_ops.sort_by_key(
+        f1, config.join_key1, algorithm=config.sort_algorithm,
+        narrow=config.narrow_keys is True,
+    )
+    s2 = sort_ops.sort_by_key(
+        f2, config.join_key2, algorithm=config.sort_algorithm,
+        narrow=config.narrow_keys is True,
+    )
+    out_cap = None
+    if config.join_mode == "inner":
+        out_cap = int(t1.capacity * config.join_slack)
+    return join_ops.merge_join(
+        s1, s2, config.join_key1, config.join_key2,
+        mode=config.join_mode, out_capacity=out_cap,
         narrow=config.narrow_keys,
         narrow_data=config.narrow_data,
         sort_algorithm=config.sort_algorithm,
@@ -125,8 +150,9 @@ class QueryPipeline:
         with self.metrics.stage("execute") as m:
             result = pipeline_core(t1, t2, cfg)
             m.rows_out = int(result.num_rows)  # waits for the device
-        # Unreachable for the 1:1 join (output rows <= table-1 capacity);
-        # kept so that joins that can overflow report it when they arrive.
+        # Inner joins report the true match count in num_rows even past the
+        # output capacity (ops/join.merge_join_inner); rows beyond the
+        # capacity were dropped, so raise instead of truncating silently.
         if m.rows_out > result.capacity:
             raise JoinOverflowError(m.rows_out, result.capacity)
         return result

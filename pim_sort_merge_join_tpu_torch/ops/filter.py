@@ -1,11 +1,13 @@
-"""Vectorized selection (port of `ops/filter.py`): the predicate mask.
+"""Vectorized selection (port of `ops/filter.py`).
 
-The fused pipeline needs only the mask: masked-out rows get sentinel keys
-and the join's sorts place the survivors. `compact`/`apply_filter` belong
-to the staged path (ROADMAP, "The staged path and sort_by_key").
+The fused pipeline needs only the predicate mask: masked-out rows get
+sentinel keys and the join's sorts place the survivors. The staged path
+compacts each table first (`apply_filter`).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -26,3 +28,25 @@ def predicate_mask(table: Table, pred: Predicate) -> torch.Tensor:
     """Boolean mask of valid rows satisfying the predicate."""
     value = torch.tensor(pred.value, dtype=table.dtype, device=table.device)
     return table.valid_mask() & _OPS[pred.op](table.column(pred.col), value)
+
+
+def compact(table: Table, mask: torch.Tensor) -> Table:
+    """Stable-compact the masked rows to the front; same capacity.
+
+    The reference sorts the rows stably on the inverted mask, so its buffer
+    holds the selected rows in order, then the unselected rows in order.
+    A stable-partition scatter gives exactly that buffer.
+    """
+    count = mask.sum(dtype=torch.int32)
+    dest = torch.where(
+        mask,
+        torch.cumsum(mask, 0) - 1,
+        count + torch.cumsum(~mask, 0) - 1,
+    )
+    data = torch.empty_like(table.data).index_copy_(0, dest, table.data)
+    return dataclasses.replace(table, data=data, num_rows=count)
+
+
+def apply_filter(table: Table, pred: Predicate) -> Table:
+    """SELECT rows satisfying ``pred``; compacted, row order preserved."""
+    return compact(table, predicate_mask(table, pred))

@@ -1,19 +1,29 @@
-"""The fused 1:1 merge-join (PyTorch port of `ops/join.py`, main path).
+"""Sorted merge-join operators (PyTorch port of `ops/join.py`).
 
-`_one_to_one_merged` keeps the JAX package's merged-domain design: one
-2-key merge sort of both key columns with their concat positions, the
-join-rank scan that gives every merged element its output slot, one
-un-merge sort back to row positions, and one emit sort per table that
-places each row at its slot. Output rows, their order and `num_rows` equal
+The fused 1:1 join, `_one_to_one_merged`, keeps the JAX package's
+merged-domain design: one 2-key merge sort of both key columns with their
+concat positions, the join-rank scan that gives every merged element its
+output slot, one un-merge sort back to row positions, and one emit sort
+per table that places each row at its slot. Output rows, their order and `num_rows` equal
 the JAX package's exactly (1:1 semantics of join.c:160-173: the k-th
 duplicate of a key in table 1 pairs with the k-th duplicate in table 2).
 
 On CUDA tensors the four sorts run the hand-written `hbm_sort` kernels and
 the scan runs the `join_scan` kernels (`ops/kernels/`); on CPU tensors
 their plain torch versions run.
+
+The inner join (`merge_join_inner`, the staged path's): the standard SQL
+cross product on duplicate keys, over two tables already sorted on their
+keys. `_match_info_keys` finds each table-1 row's matches in the merged
+key domain (one merge sort, run algebra, one un-merge sort, both through
+`stable_key_sort`), and `_emit` gathers the output rows.
+
+Output schema: table-1 columns, then table-2 columns without its key.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -27,13 +37,106 @@ def _out_names(t1: Table, t2: Table, key2: int) -> tuple:
     return tuple(f"col{i + 1}" for i in range(ncol))
 
 
-def _head_broadcast(head: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """Broadcast each run head's value over its run.
+def _emit(
+    t1: Table,
+    t2: Table,
+    key2: int,
+    src1: torch.Tensor,
+    src2: torch.Tensor,
+    valid_out: torch.Tensor,
+    num_out: torch.Tensor,
+) -> Table:
+    """Gather matched row pairs into the concatenated output table.
 
-    ``vals`` must be globally non-decreasing (true for every prefix count
-    used here), which makes a plain running max correct.
+    ``src1[j]``/``src2[j]`` give the table-1/table-2 row feeding output row
+    ``j``; ``valid_out`` masks the live output slots (front-compacted).
     """
-    return torch.cummax(torch.where(head, vals, 0), dim=0).values
+    safe1 = torch.where(valid_out, src1, 0)
+    safe2 = torch.where(valid_out, src2, 0)
+    part1 = t1.data.index_select(0, safe1)
+    keep2 = [c for c in range(t2.ncol) if c != key2]
+    part2 = t2.data[:, keep2].index_select(0, safe2)
+    data = torch.cat([part1, part2], dim=1)
+    data = torch.where(valid_out[:, None], data, 0)
+    return Table(data=data, num_rows=num_out.to(torch.int32), names=_out_names(t1, t2, key2))
+
+
+class _MatchInfo(NamedTuple):
+    lo2: torch.Tensor  # lower bound of the t1 key in the t2 keys, per t1 row
+    cnt2: torch.Tensor  # multiplicity of the t1 key in t2, per t1 row
+    occ: torch.Tensor  # occurrence rank of the t1 row within its equal-key run
+
+
+def _run_starts(keys: torch.Tensor) -> torch.Tensor:
+    """For sorted ``keys``: index of the first element of each equal run."""
+    n = keys.shape[0]
+    iota = torch.arange(n, dtype=torch.int32, device=keys.device)
+    one = torch.ones(1, dtype=torch.bool, device=keys.device)
+    head = torch.cat([one, keys[1:] != keys[:-1]])
+    return _head_broadcast(head, iota)
+
+
+def _match_info(t1: Table, t2: Table, key1: int, key2: int) -> _MatchInfo:
+    """Per-t1-row (lo2, cnt2, occ) via the merged key domain."""
+    return _match_info_keys(t1.masked_keys(key1), t2.masked_keys(key2))
+
+
+def _match_info_keys(k1: torch.Tensor, k2: torch.Tensor) -> _MatchInfo:
+    """Per-k1-element (lo2, cnt2, occ) from pre-masked key vectors.
+
+    One merge sort of both key columns with their concat positions (two
+    unique keys: table 1 first on ties), forward run algebra over the
+    merged keys, and one un-merge sort keyed on the position. Both sorts go
+    through `stable_key_sort`, so on CUDA tensors they run the `hbm_sort`
+    kernels.
+    """
+    cap1, cap2 = k1.shape[0], k2.shape[0]
+    n = cap1 + cap2
+    dev = k1.device
+    keys = torch.cat([k1, k2])
+    pos = torch.arange(n, dtype=torch.int32, device=dev)
+    mkeys, mpos = stable_key_sort((keys, pos), num_keys=2, unique_keys=True)
+    is2 = (mpos >= cap1).to(torch.int32)
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    neq = mkeys[1:] != mkeys[:-1]
+    head = torch.cat([one, neq])
+    tail = torch.cat([neq, one])
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    c2 = torch.cumsum(is2, 0, dtype=torch.int32)
+    run_start = _head_broadcast(head, iota)
+    base2 = _head_broadcast(head, c2 - is2)
+    end2 = _tail_broadcast(head, tail, c2)
+    live = mkeys != key_sentinel(mkeys.dtype)
+    # Per side-1 element: its key's run in k2 starts at the count of
+    # side-2 before its run (base2) and has end2 - base2 members; a side-1
+    # element's in-run index is its side rank (side 1 precedes side 2).
+    cnt2_m = torch.where(live, end2 - base2, 0)
+    occ_m = iota - run_start
+    _, lo2, cnt2, occ = stable_key_sort((mpos, base2, cnt2_m, occ_m), unique_keys=True)
+    return _MatchInfo(lo2=lo2[:cap1], cnt2=cnt2[:cap1], occ=occ[:cap1])
+
+
+# The run broadcasts below replace the reference's running max / reverse
+# running min (``lax.cummax``/``cummin``), which equal them where ``vals``
+# is non-decreasing, as at every call here. An element's run id is the
+# count of run heads up to it, minus one; a gather of the heads' (tails')
+# values by run id is exact for any ``vals``. On an H100 torch's CUDA
+# ``cummax`` takes 54.7 ms over 20M int32 elements and this form 0.65 ms
+# (PERF.md, "Where the time goes"). ``head[0]`` must be set.
+
+
+def _head_broadcast(head: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """Broadcast each run head's value over its run."""
+    if vals.shape[0] == 0:
+        return vals
+    return vals[head][torch.cumsum(head, 0) - 1]
+
+
+def _tail_broadcast(head: torch.Tensor, tail: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """Broadcast each run tail's value back over its run."""
+    if vals.shape[0] == 0:
+        return vals
+    return vals[tail][torch.cumsum(head, 0) - 1]
 
 
 def _narrow32(k: torch.Tensor) -> torch.Tensor:
@@ -72,9 +175,7 @@ def _merged_dest_plain(mkeys: torch.Tensor, mpos: torch.Tensor, cap1: int):
     live = mkeys != key_sentinel(mkeys.dtype)
     matched2 = (is2 == 1) & (rank < (jr + 1 - s2r)) & live
     m2cum = torch.cumsum(matched2.to(torch.int32), 0, dtype=torch.int32)
-    end2 = torch.flip(
-        torch.cummin(torch.flip(torch.where(tail, c2, n), [0]), dim=0).values, [0]
-    )
+    end2 = _tail_broadcast(head, tail, c2)
     matched1 = (is2 == 0) & (rank < (end2 - base2)) & live
     dest = torch.where(matched2, m2cum - 1, torch.where(matched1, m2cum + rank, n))
     num_out = matched2.sum(dtype=torch.int32)
@@ -210,3 +311,85 @@ def filter_join_one_to_one(
         t1, t2, key2, k1, k2, narrow=narrow, narrow_data=narrow_data,
         sort_algorithm=sort_algorithm,
     )
+
+
+def merge_join_inner(
+    t1: Table, t2: Table, key1: int, key2: int, *, out_capacity: int | None = None
+) -> Table:
+    """Standard inner join (full cross product on duplicate keys).
+
+    ``out_capacity`` bounds the output (default: table-1 capacity); rows
+    beyond it are dropped and the true count is still reported in
+    ``num_rows``, so callers can detect overflow (num_rows > capacity).
+    """
+    info = _match_info(t1, t2, key1, key2)
+    dev = t1.device
+    cnt = torch.where(t1.valid_mask(), info.cnt2, 0)
+    starts = torch.cumsum(cnt, 0, dtype=torch.int32) - cnt  # exclusive prefix
+    total = cnt.sum(dtype=torch.int32)
+    out_cap = t1.capacity if out_capacity is None else out_capacity
+    j = torch.arange(out_cap, dtype=torch.int32, device=dev)
+    # Output slot j belongs to the last table-1 row i with starts[i] <= j.
+    # Rows with matches have strictly increasing starts, so placing (i,
+    # starts[i]) at slot starts[i] and broadcasting each placed slot over
+    # the slots up to the next covers every live slot (the reference
+    # scatters and takes a running max). Dead rows, and rows that start
+    # past the capacity, go to spare slots of their own that are cut off
+    # (the reference's scatter mode="drop"). Slot 0 always starts a run:
+    # the first row with matches starts there, and with none the
+    # reference's running max is 0 everywhere.
+    has = cnt > 0
+    i1 = torch.arange(t1.capacity, dtype=torch.int32, device=dev)
+    slot = torch.where(has & (starts < out_cap), starts, out_cap + i1).long()
+    placed = torch.zeros(out_cap + t1.capacity, dtype=torch.bool, device=dev)
+    placed = placed.index_fill_(0, slot, True)[:out_cap]
+    placed[:1] = True
+
+    def broadcast(vals: torch.Tensor) -> torch.Tensor:
+        buf = torch.zeros(out_cap + t1.capacity, dtype=torch.int32, device=dev)
+        return _head_broadcast(placed, buf.index_copy_(0, slot, vals)[:out_cap])
+
+    src1 = broadcast(i1)
+    start_of = broadcast(starts)
+    src2 = info.lo2[src1.long()] + (j - start_of)
+    valid_out = j < torch.clamp(total, max=out_cap)
+    # Slots past `total` hold the last row's values, but they are invalid.
+    return _emit(t1, t2, key2, src1, src2, valid_out, total)
+
+
+def merge_join(
+    t1: Table,
+    t2: Table,
+    key1: int,
+    key2: int,
+    *,
+    mode: str = "one_to_one",
+    out_capacity: int | None = None,
+    presorted: bool = True,
+    narrow: bool = False,
+    narrow_data: bool = False,
+    sort_algorithm: str = "auto",
+) -> Table:
+    """Join two tables on their key columns.
+
+    ``presorted=False`` (one_to_one only) accepts unsorted inputs: the
+    merged-domain core establishes key order itself. ``narrow`` and
+    ``narrow_data`` (one_to_one only) ride keys and payloads through the
+    core's sorts as int32; ``sort_algorithm`` is passed to its sort seam.
+    The inner join needs key-sorted inputs.
+    """
+    if mode == "one_to_one":
+        if not presorted:
+            return filter_join_one_to_one(
+                t1, t2, key1, key2, t1.valid_mask(), t2.valid_mask(),
+                narrow=narrow, narrow_data=narrow_data, sort_algorithm=sort_algorithm,
+            )
+        return merge_join_one_to_one(
+            t1, t2, key1, key2, narrow=narrow, narrow_data=narrow_data,
+            sort_algorithm=sort_algorithm,
+        )
+    if mode == "inner":
+        if not presorted:
+            raise ValueError("inner join requires key-sorted inputs")
+        return merge_join_inner(t1, t2, key1, key2, out_capacity=out_capacity)
+    raise ValueError(f"unknown join mode {mode!r}")

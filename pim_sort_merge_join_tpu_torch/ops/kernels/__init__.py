@@ -1,14 +1,16 @@
-"""Hand-written CUDA kernels of the main path, with their plain versions."""
+"""Hand-written CUDA kernels of the port, with their plain versions."""
 
-from pim_sort_merge_join_tpu_torch.ops.kernels import hbm_sort, join_scan
+from pim_sort_merge_join_tpu_torch.ops.kernels import bitonic_sort, hbm_sort, join_scan, radix_sort
+
+_COUNTERS = (hbm_sort.LAUNCHES, join_scan.LAUNCHES, bitonic_sort.LAUNCHES, radix_sort.LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches by the wrappers since the last reset, by kernel."""
-    return {**hbm_sort.LAUNCHES, **join_scan.LAUNCHES}
+    return {name: n for counts in _COUNTERS for name, n in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (hbm_sort.LAUNCHES, join_scan.LAUNCHES):
+    for counts in _COUNTERS:
         for name in counts:
             counts[name] = 0

@@ -6,8 +6,9 @@ with the card and no jax, run them without the JAX test harness:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 The cases are the adversarial ones `chip_smoke.py` runs (those of
-tests/test_hbm_sort.py and tests/test_join_scan.py, plus runs that cross
-the scan's blocks). Every comparison is exact.
+tests/test_hbm_sort.py, tests/test_join_scan.py, tests/test_pallas_sort.py
+and tests/test_radix.py, plus runs that cross the scan's blocks and the
+bitonic sort's tiles). Every comparison is exact.
 """
 
 import numpy as np
@@ -49,6 +50,43 @@ def test_join_scan_kernel_matches_plain(cuda):
         assert int(num_out) == int(want_num), name
 
 
+def test_bitonic_kernel_matches_plain(cuda):
+    import chip_smoke
+    from pim_sort_merge_join_tpu_torch.ops.kernels import bitonic_sort as bs
+
+    for name, keys, vals in chip_smoke.bitonic_cases(np.random.default_rng(63)):
+        k, v = torch.from_numpy(keys).to(cuda), torch.from_numpy(vals).to(cuda)
+        got = bs.sort_pairs(k, v)
+        want = chip_smoke.plain_sort_pairs(k, v)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), name
+
+
+def test_radix_kernel_matches_plain(cuda):
+    import chip_smoke
+    from pim_sort_merge_join_tpu_torch.ops.kernels import radix_sort as rs
+
+    for name, arrays, tile, digit_bits, key_bits in chip_smoke.radix_cases(np.random.default_rng(64)):
+        ops = tuple(torch.from_numpy(a).to(cuda) for a in arrays)
+        kw = dict(tile=tile, digit_bits=digit_bits, key_bits=key_bits)
+        for g, w in zip(rs.radix_tile_sort(ops, **kw), rs.radix_tile_sort_plain(ops, **kw)):
+            assert torch.equal(g, w), name
+
+
+def test_radix_runs_merge_into_the_hbm_sort_permutation(cuda):
+    import chip_smoke
+    from pim_sort_merge_join_tpu_torch.ops.kernels import hbm_sort as hs
+
+    n = 100_003
+    keys = torch.randint(0, 50_000, (n,), dtype=torch.int32, device=cuda)
+    pos = torch.arange(n, dtype=torch.int32, device=cuda)
+    npad = -(-n // 2048) * 2048
+    kp = torch.cat([keys, torch.full((npad - n,), 2**31 - 1, dtype=torch.int32, device=cuda)])
+    pp = torch.arange(npad, dtype=torch.int32, device=cuda)
+    want = hs.sort_permutation(keys, pos, hs.KIND_I32_PAIR)
+    assert torch.equal(chip_smoke.radix_runs_merged(kp, pp, n), want)
+
+
 @pytest.mark.parametrize("key_offset", [0, 2**40])
 def test_pipeline_on_card_matches_cpu(cuda, key_offset):
     import chip_smoke
@@ -60,7 +98,29 @@ def test_pipeline_on_card_matches_cpu(cuda, key_offset):
     got = QueryPipeline(cfg, device=cuda).run_tables(
         Table.from_numpy(r1, device=cuda), Table.from_numpy(r2, device=cuda)
     )
-    assert all(n > 0 for n in kernels.launch_counts().values())
+    ran = {name for name, n in kernels.launch_counts().items() if n > 0}
+    assert ran == chip_smoke.FUSED_KERNELS
+    want = QueryPipeline(cfg).run_tables(Table.from_numpy(r1), Table.from_numpy(r2))
+    assert torch.equal(got.data.cpu(), want.data)
+    assert int(got.num_rows) == int(want.num_rows) > 0
+
+
+@pytest.mark.parametrize("sort_algorithm", ["auto", "pallas_bitonic"])
+def test_staged_pipeline_on_card_matches_cpu(cuda, sort_algorithm):
+    import chip_smoke
+    from pim_sort_merge_join_tpu_torch import QueryPipeline, Table
+    from pim_sort_merge_join_tpu_torch.ops import kernels
+
+    r1, r2, cfg = chip_smoke.staged_inputs(30_000, sort_algorithm)
+    kernels.reset_launch_counts()
+    got = QueryPipeline(cfg, device=cuda).run_tables(
+        Table.from_numpy(r1, device=cuda), Table.from_numpy(r2, device=cuda)
+    )
+    ran = {name for name, n in kernels.launch_counts().items() if n > 0}
+    want_ran = chip_smoke.STAGED_KERNELS
+    if sort_algorithm == "pallas_bitonic":
+        want_ran = chip_smoke.STAGED_BITONIC_KERNELS
+    assert ran == want_ran
     want = QueryPipeline(cfg).run_tables(Table.from_numpy(r1), Table.from_numpy(r2))
     assert torch.equal(got.data.cpu(), want.data)
     assert int(got.num_rows) == int(want.num_rows) > 0
@@ -81,3 +141,18 @@ def test_kernels_refuse_what_they_cannot_take(cuda):
         hs.hbm_sort((strided,))
     with pytest.raises(ValueError, match="int32"):
         js.join_scan_cuda(k, k, 8)
+
+    from pim_sort_merge_join_tpu_torch.ops.kernels import bitonic_sort as bs
+    from pim_sort_merge_join_tpu_torch.ops.kernels import radix_sort as rs
+
+    with pytest.raises(ValueError, match="power of two"):
+        bs.bitonic_sort_cuda(k[:12].int(), k[:12].int())
+    with pytest.raises(ValueError, match="int32"):
+        bs.bitonic_sort_cuda(k, k)
+    with pytest.raises(ValueError, match="contiguous"):
+        rs.radix_tile_sort((strided,), tile=16)
+    k32 = torch.zeros(1 << 16, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        rs.radix_tile_sort((k32,), tile=1 << 16)
+    with pytest.raises(ValueError, match="at most"):
+        rs.radix_tile_sort((k32,) * 9, tile=256)

@@ -100,9 +100,7 @@ def test_resolve_narrow_matches_reference(k1, k2):
 @pytest.mark.parametrize(
     "kw",
     [
-        {"join_mode": "inner"},
         {"join_algorithm": "hash"},
-        {"sort_algorithm": "pallas_bitonic"},
         {"checkpoint_dir": "ckpt"},
         {"debug_log": True},
         {"dtype": "float64"},
