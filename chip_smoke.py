@@ -3,7 +3,10 @@
 Usage, from the root of a checkout, on a machine with an NVIDIA H100 and
 the CUDA toolkit:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase below
+    python3 chip_smoke.py --profile  # the fused 10M and staged 10M queries
+                                     # under torch.profiler: busy time,
+                                     # launches and the top kernels
 
 Phases, in order; any failure exits non-zero:
   1. card details (nvidia-smi, torch, CUDA, nvcc);
@@ -11,10 +14,12 @@ Phases, in order; any failure exits non-zero:
   3. every kernel against its plain torch version on the card, exactly:
      adversarial cases, then the shapes the paths give them, timed with
      CUDA events (median of 3 after a warmup): the fused path's at 10M
-     rows/table, the bitonic sort at its 2^21 cap, and the radix tile sort
-     at the merge sort's 20M elements, beside the chunk sort. The radix
-     sort then forms the runs of that merge sort (run formation: radix
-     runs + merge passes), which must equal the `hbm_sort` permutation;
+     rows/table (each of its three sorts as phase A, phase B and whole,
+     beside stable `torch.sort` of the key alone), the bitonic sort at its
+     2^21 cap, and the radix tile sort at the merge sort's 20M elements,
+     beside the chunk sort. The radix sort then forms the runs of that
+     merge sort (run formation: radix runs + merge passes), which must
+     equal the `hbm_sort` result;
   4. the query at 100k rows/table through `QueryPipeline.run_csv`: rows and
      CSV bytes equal the numpy oracle's;
   5. the fused query at 10M rows/table through `run_tables` (the main
@@ -25,6 +30,14 @@ Phases, in order; any failure exits non-zero:
      sorts, each against the plain path on CPU tensors.
 Each path runs with the launch counts set to 0 just before and read just
 after: exactly the kernels of that path must have run.
+
+Each kernel's record carries its time, its plain version's, the time of the
+one PyTorch call that computes the same function where there is one
+(`library_ms`; the port never calls it), and its bound: the larger of the
+bytes it must move (inputs read once, outputs written once) over 3.35 TB/s
+and its compares over 33.5e12/s (the H100's 67 TFLOP/s of float32 outside
+the tensor cores, one integer operation where a fused multiply-add counts
+two).
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and the result JSON. Without a CUDA device, or without the
@@ -92,10 +105,47 @@ def max_abs_err(got, want) -> int:
 # --- adversarial cases (tests/test_hbm_sort.py, tests/test_join_scan.py) ---
 
 
+def element_edge_cases(rng):
+    """`sort_cases` for each element kind of `hbm_sort` at the run and tile
+    edges: run - 1, run, run + 1, a lone last run, a tile more than a run,
+    all keys equal, INT32_MIN and INT32_MAX keys beside sentinels, and a
+    2-key sort whose second key is not arange."""
+    from pim_sort_merge_join_tpu_torch.ops.kernels.hbm_sort import RUN, TILE
+
+    i32, i64max = np.iinfo(np.int32), np.iinfo(np.int64).max
+    extremes = np.array([i32.min, i32.min + 1, -1, 0, i32.max - 1, i32.max], np.int32)
+
+    def key32(n, lo=-(1 << 30), hi=1 << 30):
+        return rng.integers(lo, hi, n).astype(np.int32)
+
+    cases = []
+    for n in (RUN - 1, RUN, RUN + 1, RUN + TILE, 2 * RUN + 5):
+        iota = np.arange(n, dtype=np.int32)
+        cases.append((f"packed32_{n}", [key32(n, 0, 50), rng.integers(-(2**62), 2**62, n)], 1))
+        cases.append((f"pair32_{n}", [key32(n, -3, 3), rng.permutation(n).astype(np.int32)], 2))
+        cases.append((f"wide_pair_{n}", [key32(n, -3, 3), key32(n, -5, 5),
+                                         rng.integers(0, 10**12, n)], 2))
+        cases.append((f"wide_i64_{n}", [rng.integers(-(2**60), 2**60, n), iota], 1))
+        cases.append((f"wide_i64_arange_{n}", [rng.integers(-4, 4, n), iota.astype(np.int64),
+                                               key32(n)], 2))
+    n = 2 * RUN + 5
+    iota = np.arange(n, dtype=np.int32)
+    cases.append(("packed32_all_equal", [np.full(n, 7, np.int32), iota], 1))
+    cases.append(("pair32_all_equal", [np.full(n, -7, np.int32), np.full(n, 3, np.int32)], 2))
+    cases.append(("wide_i64_all_equal", [np.full(n, -(2**40)), iota], 1))
+    cases.append(("packed32_extremes", [rng.choice(extremes, n), iota], 1))
+    cases.append(("pair32_extremes", [rng.choice(extremes, n), rng.choice(extremes, n)], 2))
+    cases.append(("wide_pair_extremes", [rng.choice(extremes, n), rng.choice(extremes, n), iota], 2))
+    wide = rng.choice(np.array([-i64max - 1, -1, 0, 2**40, i64max - 1, i64max]), n)
+    cases.append(("wide_i64_extremes", [wide, iota], 1))
+    cases.append(("pair32_second_key_not_arange", [key32(n, 0, 9), key32(n, -(2**31), 2**31 - 1)], 2))
+    return cases
+
+
 def sort_cases(rng):
     """(name, operands as numpy arrays, num_keys)."""
     i32max = np.iinfo(np.int32).max
-    cases = []
+    cases = element_edge_cases(rng)
     for n in (512, 2048, 4096):
         cases.append((f"pair_multi_pass_{n}", [rng.integers(0, 1 << 30, n).astype(np.int32),
                                                np.arange(n, dtype=np.int32)], 1))
@@ -294,6 +344,46 @@ def slice_inputs(n: int, key_offset: int = 0):
     return r1, r2, cfg
 
 
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+INT_OPS_PER_S = 33.5e12  # 67 TFLOP/s float32 outside the tensor cores / 2
+
+
+def bound(nbytes: float, compares: float = 0.0) -> dict:
+    """The least time the card could take: bytes moved once over the memory
+    rate, or the compares over the integer rate, whichever is larger."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, compares / INT_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def time_sort(rec: dict, name: str, ops: tuple, num_keys: int) -> None:
+    """One main-path sort: the whole `hbm_sort` against its plain version
+    (exact), phase A and phase B alone, and stable `torch.sort` of the key
+    alone as the library's time."""
+    import torch
+
+    from pim_sort_merge_join_tpu_torch.ops.kernels import hbm_sort as hs
+
+    n = ops[0].shape[0]
+    kind = hs.element_kind(ops, num_keys)
+    k0, k1 = hs.key_operands(ops, kind)
+    rec[f"{name}_err"] = max_abs_err(hs.hbm_sort(ops, num_keys), hs.hbm_sort_plain(ops, num_keys))
+    rec[f"{name}_ms"] = time_ms(lambda _: hs.hbm_sort(ops, num_keys))
+    rec[f"{name}_plain_ms"] = time_ms(lambda _: hs.hbm_sort_plain(ops, num_keys))
+    rec[f"{name}_library_ms"] = time_ms(lambda _: torch.sort(ops[0], stable=True))
+    rec[f"{name}_phase_a_ms"] = time_ms(lambda _: hs.chunk_sort(k0, k1, kind))
+    runs = hs.chunk_sort(k0, k1, kind)
+    rec[f"{name}_phase_b_ms"] = time_ms(
+        lambda kv: hs.merge_passes(*kv, kind, n),
+        setup=lambda: tuple(None if t is None else t.clone() for t in runs),
+    )
+    rec[f"{name}_bound_ms"] = bound(2 * nbytes(*ops))["bound_ms"]
+
+
 def phase_main_path_shapes(r1, r2, cfg) -> dict:
     """Each kernel at the shapes the 10M-row query gives it, vs plain."""
     import torch
@@ -305,8 +395,9 @@ def phase_main_path_shapes(r1, r2, cfg) -> dict:
     from pim_sort_merge_join_tpu_torch.ops.kernels import hbm_sort as hs
     from pim_sort_merge_join_tpu_torch.ops.kernels import join_scan as js
 
-    t1 = Table.from_numpy(r1, device="cuda")
-    t2 = Table.from_numpy(r2, device="cuda")
+    t1 = Table.from_numpy(r1)
+    t2 = Table.from_numpy(r2)
+    check(t1.device.type == "cuda", f"Table.from_numpy defaults to {t1.device}, not the card")
     cap1, n = t1.capacity, t1.capacity + t2.capacity
     sent = key_sentinel(t1.dtype)
     k1 = torch.where(filter_ops.predicate_mask(t1, cfg.predicate1), t1.data[:, 0], sent)
@@ -315,17 +406,21 @@ def phase_main_path_shapes(r1, r2, cfg) -> dict:
     pos = torch.arange(n, dtype=torch.int32, device="cuda")
     rec = {}
 
-    # Merge sort: 2n (int32 key, int32 pos), two keys packed into one.
+    # Merge sort: 2n (int32 key, int32 pos), the pair-32 element.
     merge_ops = (keys, pos)
     mkeys, mpos = hs.hbm_sort(merge_ops, 2)
-    rec["merge_sort_err"] = max_abs_err((mkeys, mpos), hs.hbm_sort_plain(merge_ops, 2))
-    rec["merge_sort_ms"] = time_ms(lambda _: hs.hbm_sort(merge_ops, 2))
-    rec["merge_sort_plain_ms"] = time_ms(lambda _: hs.hbm_sort_plain(merge_ops, 2))
-    rec["chunk_ms"] = time_ms(lambda _: hs.chunk_sort(keys, pos, hs.KIND_I32_PAIR))
-    chunked = hs.chunk_sort(keys, pos, hs.KIND_I32_PAIR)
-    rec["merge_ms"] = time_ms(
-        lambda kv: hs.merge_passes(*kv), setup=lambda: tuple(t.clone() for t in chunked)
-    )
+    time_sort(rec, "merge_sort", merge_ops, 2)
+    npad, runs = hs.pass_schedule(n)
+    rec["sort_n"], rec["sort_npad"], rec["merge_passes"] = n, npad, len(runs)
+    # Kernels 1 and 2 at this shape: phase A reads both keys and writes the
+    # elements; phase B (all passes) reads the elements and writes both keys.
+    rec["chunk"] = {"ms": rec["merge_sort_phase_a_ms"], "library_ms": None,
+                    **bound(nbytes(keys, pos) + 8 * npad, compares=13 * npad)}
+    elements = hs.chunk_sort(keys, pos, hs.KIND_PAIR32)[0]
+    rec["merge"] = {"ms": rec["merge_sort_phase_b_ms"],
+                    "library_ms": time_ms(lambda _: torch.sort(elements)),
+                    **bound(8 * npad + nbytes(mkeys, mpos), compares=len(runs) * npad)}
+    del elements
 
     # Join scan over the merged 2n int32 keys.
     dest, num_out = js.join_scan_cuda(mkeys, mpos, cap1)
@@ -334,84 +429,87 @@ def phase_main_path_shapes(r1, r2, cfg) -> dict:
     rec["forward_ms"] = time_ms(lambda _: js.join_scan_forward(mkeys, mpos, cap1))
     cand, m2 = js.join_scan_forward(mkeys, mpos, cap1)
     rec["backward_ms"] = time_ms(lambda _: js.join_scan_backward(mkeys, cand, m2))
+    rec["forward_bound"] = bound(nbytes(mkeys, mpos, cand, m2), compares=4 * n)
+    rec["backward_bound"] = bound(nbytes(mkeys, cand, m2, dest), compares=4 * n)
     rec["num_out"] = int(num_out)
 
-    # Un-merge sort: 2n, one unique int32 key.
+    # Un-merge sort: 2n, one unique int32 key and one payload (packed-32).
     unmerge_ops = (mpos, dest)
     _, dest_by_pos = hs.hbm_sort(unmerge_ops)
-    rec["unmerge_sort_err"] = max_abs_err(hs.hbm_sort(unmerge_ops), hs.hbm_sort_plain(unmerge_ops))
-    rec["unmerge_sort_ms"] = time_ms(lambda _: hs.hbm_sort(unmerge_ops))
-    rec["unmerge_sort_plain_ms"] = time_ms(lambda _: hs.hbm_sort_plain(unmerge_ops))
+    time_sort(rec, "unmerge_sort", unmerge_ops, 1)
 
     # Emit sort: n1 slots carrying the 4 int64 columns of table 1.
     d1 = dest_by_pos[:cap1]
     d1u = torch.where(d1 >= n, n + torch.arange(cap1, dtype=torch.int32, device="cuda"), d1)
-    emit_ops = (d1u,) + tuple(t1.data[:, c].contiguous() for c in range(t1.ncol))
-    rec["emit_sort_err"] = max_abs_err(hs.hbm_sort(emit_ops), hs.hbm_sort_plain(emit_ops))
-    rec["emit_sort_ms"] = time_ms(lambda _: hs.hbm_sort(emit_ops))
-    rec["emit_sort_plain_ms"] = time_ms(lambda _: hs.hbm_sort_plain(emit_ops))
-    perm = hs.sort_permutation(d1u, d1u, hs.KIND_I32)
+    cols = tuple(t1.data[:, c].contiguous() for c in range(t1.ncol))
+    time_sort(rec, "emit_sort", (d1u,) + cols, 1)
+    # The gather as the emit sort calls it: the permutation over the payloads.
+    perm = hs.sort_elements(d1u, d1u, hs.KIND_PACKED32)[1]
     perm64 = perm.long()
-    rec["gather_err"] = max_abs_err(hs.gather(perm, emit_ops), tuple(o[perm64] for o in emit_ops))
-    rec["gather_ms"] = time_ms(lambda _: hs.gather(perm, emit_ops))
-    rec["gather_plain_ms"] = time_ms(lambda _: tuple(o[perm64] for o in emit_ops))
+    stacked = torch.stack(cols)
+    rec["gather_err"] = max_abs_err(hs.gather(perm, cols), tuple(o[perm64] for o in cols))
+    rec["gather"] = {"ms": time_ms(lambda _: hs.gather(perm, cols)),
+                     "plain_ms": time_ms(lambda _: tuple(o[perm64] for o in cols)),
+                     "library_ms": time_ms(lambda _: stacked.index_select(1, perm)),
+                     **bound(nbytes(perm) + 2 * nbytes(*cols))}
     torch.cuda.synchronize()
     for key in ("merge_sort_err", "scan_err", "unmerge_sort_err", "emit_sort_err", "gather_err"):
         check(rec[key] == 0, f"main-path shape {key} = {rec[key]}: kernel differs from plain")
-    log("main-path shapes (ms, kernel vs plain): " + json.dumps(rec))
+    log("main-path shapes (ms, kernel vs plain vs library): " + json.dumps(rec))
+    del stacked, cols
     rec.update(phase_run_formation(keys, pos))
     return rec
 
 
 def radix_runs_merged(kp, pp, n: int):
     """Run formation by the radix tile sort, then the `hbm_sort` merge
-    passes: the stable sort permutation of the first n of ``kp``."""
+    passes: the stable sort of the first n of ``(kp, pp)`` by both."""
     from pim_sort_merge_join_tpu_torch.ops.kernels import hbm_sort as hs
     from pim_sort_merge_join_tpu_torch.ops.kernels import radix_sort as rs
 
-    rk, rp = rs.radix_tile_sort((kp, pp), tile=hs._fn("smj_hbm_sort_chunk_size")(),
-                                digit_bits=8, key_bits=32)
-    # The merge passes take the chunk sort's element: the key biased to
-    # unsigned order in 64 bits, and the position.
-    return hs.merge_passes(rk.long() + 2**31, rp)[:n]
+    rk, rp = rs.radix_tile_sort((kp, pp), tile=hs.RUN, digit_bits=8, key_bits=32)
+    # The merge passes take the chunk sort's element: here both int32
+    # operands in one 64-bit word (pair-32).
+    return hs.merge_passes(hs.pack_pair32(rk, rp), None, hs.KIND_PAIR32, n)
 
 
 def phase_run_formation(keys, pos) -> dict:
     """The radix tile sort at the fused merge sort's shape (20M non-negative
-    int32 keys + positions), at tiles 2048 and 512, beside its plain version
-    and the chunk sort; then the run-formation path against `hbm_sort`."""
+    int32 keys + positions), at tiles 2048 and 512 and at the merge sort's
+    run length, beside its plain version and the chunk sort; then the
+    run-formation path against `hbm_sort`'s own kernels."""
     import torch
 
     from pim_sort_merge_join_tpu_torch.ops import kernels
     from pim_sort_merge_join_tpu_torch.ops.kernels import hbm_sort as hs
     from pim_sort_merge_join_tpu_torch.ops.kernels import radix_sort as rs
 
-    n, chunk = keys.shape[0], hs._fn("smj_hbm_sort_chunk_size")()
-    npad = -(-n // chunk) * chunk
+    n = keys.shape[0]
+    npad, _ = hs.pass_schedule(n)
     kp = torch.cat([keys, torch.full((npad - n,), I32MAX, dtype=torch.int32, device="cuda")])
     pp = torch.arange(npad, dtype=torch.int32, device="cuda")
     rec = {"radix_n": npad}
-    for tile in (chunk, 512):
+    for tile in (2048, 512, hs.RUN):
         kw = dict(tile=tile, digit_bits=8, key_bits=32)
         rec[f"radix{tile}_err"] = max_abs_err(rs.radix_tile_sort((kp, pp), **kw),
                                               rs.radix_tile_sort_plain((kp, pp), **kw))
         rec[f"radix{tile}_ms"] = time_ms(lambda _: rs.radix_tile_sort((kp, pp), **kw))
         rec[f"radix{tile}_plain_ms"] = time_ms(lambda _: rs.radix_tile_sort_plain((kp, pp), **kw))
-    rec["chunk_sort_ms"] = time_ms(lambda _: hs.chunk_sort(keys, pos, hs.KIND_I32_PAIR))
+        check(rec[f"radix{tile}_err"] == 0, f"radix tile {tile}: kernel differs from plain")
+    rec["radix_bound"] = bound(2 * nbytes(kp, pp), compares=4 * npad)
+    rec["chunk_sort_ms"] = time_ms(lambda _: hs.chunk_sort(keys, pos, hs.KIND_PAIR32))
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    perm = radix_runs_merged(kp, pp, n)
+    got = radix_runs_merged(kp, pp, n)
     torch.cuda.synchronize()
     rec["launches"] = kernels.launch_counts()
     ran = {name for name, c in rec["launches"].items() if c > 0}
     check(ran == {"radix_tile", "hbm_sort_merge"}, f"run formation launched {sorted(ran)}")
-    rec["run_formation_err"] = max_abs_err(
-        (perm,), (hs.sort_permutation(keys, pos, hs.KIND_I32_PAIR),))
+    rec["run_formation_err"] = max_abs_err(got, hs.sort_elements(keys, pos, hs.KIND_PAIR32))
     rec["run_formation_ms"] = time_ms(lambda _: radix_runs_merged(kp, pp, n))
-    rec["sort_permutation_ms"] = time_ms(
-        lambda _: hs.sort_permutation(keys, pos, hs.KIND_I32_PAIR))
-    for key in (f"radix{chunk}_err", "radix512_err", "run_formation_err"):
-        check(rec[key] == 0, f"run formation {key} = {rec[key]}: kernel differs from plain")
+    rec["sort_elements_ms"] = time_ms(lambda _: hs.sort_elements(keys, pos, hs.KIND_PAIR32))
+    check(rec["run_formation_err"] == 0,
+          f"run formation differs from the chunk sort's ({rec['run_formation_err']})")
     log("run formation (ms, radix vs plain vs chunk sort): " + json.dumps(rec))
     return rec
 
@@ -431,6 +529,10 @@ def phase_bitonic_shape(rng) -> dict:
     rec["bitonic_err"] = max_abs_err(bs.sort_pairs(keys, vals), plain_sort_pairs(keys, vals))
     rec["bitonic_ms"] = time_ms(lambda _: bs.sort_pairs(keys, vals))
     rec["bitonic_plain_ms"] = time_ms(lambda _: plain_sort_pairs(keys, vals))
+    rec["bitonic_library_ms"] = time_ms(lambda _: torch.sort(keys, stable=True))
+    width = rec["bitonic_width"]
+    steps = width.bit_length() - 1
+    rec["bitonic_bound"] = bound(4 * nbytes(keys), compares=width // 2 * steps * (steps + 1) // 2)
     torch.cuda.synchronize()
     check(rec["bitonic_err"] == 0, f"bitonic at 2^21: kernel differs from plain ({rec['bitonic_err']})")
     log("bitonic at its cap (ms, kernel vs plain): " + json.dumps(rec))
@@ -513,9 +615,11 @@ def phase_slice(r1, r2, cfg, *, expect_narrow: bool, label: str, kernels_of_path
     from pim_sort_merge_join_tpu_torch import QueryPipeline, Table
     from pim_sort_merge_join_tpu_torch.ops import kernels
 
-    g1 = Table.from_numpy(r1, device="cuda")
-    g2 = Table.from_numpy(r2, device="cuda")
-    pipe = QueryPipeline(cfg, device="cuda")
+    g1 = Table.from_numpy(r1)
+    g2 = Table.from_numpy(r2)
+    pipe = QueryPipeline(cfg)
+    check(pipe.device.type == "cuda" and g1.device.type == "cuda",
+          f"{label}: the default device is {pipe.device} / {g1.device}, not the card")
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     out = pipe.run_tables(g1, g2)
@@ -526,7 +630,8 @@ def phase_slice(r1, r2, cfg, *, expect_narrow: bool, label: str, kernels_of_path
     ran = {name for name, count in launches.items() if count > 0}
     check(ran == kernels_of_path,
           f"{label}: launched {sorted(ran)}, the path's kernels are {sorted(kernels_of_path)}")
-    ref = QueryPipeline(cfg).run_tables(Table.from_numpy(r1), Table.from_numpy(r2))
+    ref = QueryPipeline(cfg, device="cpu").run_tables(
+        Table.from_numpy(r1, device="cpu"), Table.from_numpy(r2, device="cpu"))
     rows = int(out.num_rows)
     check(rows == int(ref.num_rows) and rows > 0, f"{label}: num_rows {rows} vs plain {int(ref.num_rows)}")
     check(tuple(out.data.shape) == tuple(ref.data.shape), f"{label}: output shape differs")
@@ -535,6 +640,49 @@ def phase_slice(r1, r2, cfg, *, expect_narrow: bool, label: str, kernels_of_path
     log(f"slice {label}: {rows} rows equal to the plain path; launches {launches}; "
         f"run_tables {ms:.3f} ms (median of 3)")
     return launches, ms, rows
+
+
+def phase_profile() -> None:
+    """One `run_tables` of the fused 10M and of the staged 10M query under
+    `torch.profiler`: device span, busy time, kernel launches, peak memory
+    and the kernels by device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pim_sort_merge_join_tpu_torch import QueryPipeline, Table
+
+    for label, (r1, r2, cfg) in (("fused 10M", slice_inputs(10_000_000)),
+                                 ("staged inner 10M", staged_inputs(10_000_000, "auto"))):
+        g1, g2, pipe = Table.from_numpy(r1), Table.from_numpy(r2), QueryPipeline(cfg)
+        del r1, r2
+        for _ in range(2):
+            pipe.run_tables(g1, g2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pipe.run_tables(g1, g2)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+        on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        check(bool(on_card), f"profile {label}: the profiler saw no device activity")
+        start = min(e.time_range.start for e in on_card)
+        end = max(e.time_range.end for e in on_card)
+        busy = sum(e.time_range.end - e.time_range.start for e in on_card)
+        by_name: dict = {}
+        for e in on_card:
+            t, c = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.time_range.end - e.time_range.start, c + 1)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]
+        log(f"profile {label}: host {host_ms:.3f} ms under the profiler; device span "
+            f"{(end - start) / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms "
+            f"({100 * (1 - busy / (end - start)):.1f}% idle), {len(on_card)} device activities; "
+            f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        for name, (t, c) in top:
+            log(f"  {t / 1e3:8.3f} ms  x{c:<4d} {name[:100]}")
+        del g1, g2, pipe
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -554,6 +702,13 @@ def main() -> int:
 
     card = card_details()
     phase_build()
+    if sys.argv[1:] == ["--profile"]:
+        phase_profile()
+        print(card)
+        return 0
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
+        return 2
     rng = np.random.default_rng(20241220)
     errs = phase_adversarial(rng)
     r1, r2, cfg = slice_inputs(10_000_000)
@@ -582,36 +737,40 @@ def main() -> int:
     ref = "pim_sort_merge_join_tpu/ops/pallas/"
     sort_err = max(errs["sort"], shapes["merge_sort_err"], shapes["unmerge_sort_err"],
                    shapes["emit_sort_err"])
+    scan_err = max(errs["scan"], shapes["scan_err"])
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound_rec, library_ms=None):
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": ref + replaces, "launches": launches, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_rec["bound_ms"],
+                "bound_by": bound_rec["bound_by"], "library_ms": library_ms}
+
+    chunk, merge, gather = shapes["chunk"], shapes["merge"], shapes["gather"]
     kernels = [
-        {"name": "hbm_sort_chunk", "route": "cuda", "source": src + "hbm_sort.cu",
-         "replaces": ref + "hbm_sort.py:286", "launches": launches["hbm_sort_chunk"],
-         "max_abs_err": sort_err, "ms": shapes["chunk_ms"],
-         "plain_ms": shapes["merge_sort_plain_ms"]},
-        {"name": "hbm_sort_merge", "route": "cuda", "source": src + "hbm_sort.cu",
-         "replaces": ref + "hbm_sort.py:463", "launches": launches["hbm_sort_merge"],
-         "max_abs_err": sort_err, "ms": shapes["merge_ms"],
-         "plain_ms": shapes["merge_sort_plain_ms"]},
-        {"name": "hbm_sort_gather", "route": "cuda", "source": src + "hbm_sort.cu",
-         "replaces": ref + "hbm_sort.py:670", "launches": launches["hbm_sort_gather"],
-         "max_abs_err": max(sort_err, shapes["gather_err"]), "ms": shapes["gather_ms"],
-         "plain_ms": shapes["gather_plain_ms"]},
-        {"name": "join_scan_forward", "route": "cuda", "source": src + "join_scan.cu",
-         "replaces": ref + "join_scan.py:137", "launches": launches["join_scan_forward"],
-         "max_abs_err": max(errs["scan"], shapes["scan_err"]), "ms": shapes["forward_ms"],
-         "plain_ms": shapes["scan_plain_ms"]},
-        {"name": "join_scan_backward", "route": "cuda", "source": src + "join_scan.cu",
-         "replaces": ref + "join_scan.py:216", "launches": launches["join_scan_backward"],
-         "max_abs_err": max(errs["scan"], shapes["scan_err"]), "ms": shapes["backward_ms"],
-         "plain_ms": shapes["scan_plain_ms"]},
-        {"name": "bitonic_sort", "route": "cuda", "source": src + "bitonic_sort.cu",
-         "replaces": ref + "sort_kernel.py:138",
-         "launches": launches_b["bitonic_local"] + launches_b["bitonic_global"],
-         "max_abs_err": max(errs["bitonic"], bitonic["bitonic_err"]), "ms": bitonic["bitonic_ms"],
-         "plain_ms": bitonic["bitonic_plain_ms"]},
-        {"name": "radix_tile_sort", "route": "cuda", "source": src + "radix_sort.cu",
-         "replaces": ref + "radix_sort.py:78", "launches": shapes["launches"]["radix_tile"],
-         "max_abs_err": max(errs["radix"], shapes["radix2048_err"], shapes["radix512_err"]),
-         "ms": shapes["radix2048_ms"], "plain_ms": shapes["radix2048_plain_ms"]},
+        entry("hbm_sort_chunk", "hbm_sort.cu", "hbm_sort.py:286", launches["hbm_sort_chunk"],
+              sort_err, chunk["ms"], shapes["merge_sort_plain_ms"], chunk),
+        # All merge passes of the 20M merge sort; the library call sorts the
+        # same run-sorted elements.
+        entry("hbm_sort_merge", "hbm_sort.cu", "hbm_sort.py:463", launches["hbm_sort_merge"],
+              sort_err, merge["ms"], shapes["merge_sort_plain_ms"], merge, merge["library_ms"]),
+        entry("hbm_sort_gather", "hbm_sort.cu", "hbm_sort.py:670", launches["hbm_sort_gather"],
+              max(sort_err, shapes["gather_err"]), gather["ms"], gather["plain_ms"], gather,
+              gather["library_ms"]),
+        entry("join_scan_forward", "join_scan.cu", "join_scan.py:137",
+              launches["join_scan_forward"], scan_err, shapes["forward_ms"],
+              shapes["scan_plain_ms"], shapes["forward_bound"]),
+        entry("join_scan_backward", "join_scan.cu", "join_scan.py:216",
+              launches["join_scan_backward"], scan_err, shapes["backward_ms"],
+              shapes["scan_plain_ms"], shapes["backward_bound"]),
+        entry("bitonic_sort", "bitonic_sort.cu", "sort_kernel.py:138",
+              launches_b["bitonic_local"] + launches_b["bitonic_global"],
+              max(errs["bitonic"], bitonic["bitonic_err"]), bitonic["bitonic_ms"],
+              bitonic["bitonic_plain_ms"], bitonic["bitonic_bound"],
+              bitonic["bitonic_library_ms"]),
+        entry("radix_tile_sort", "radix_sort.cu", "radix_sort.py:78",
+              shapes["launches"]["radix_tile"],
+              max(errs["radix"], shapes["radix2048_err"], shapes["radix512_err"]),
+              shapes["radix2048_ms"], shapes["radix2048_plain_ms"], shapes["radix_bound"]),
     ]
     log(f"slice 10M: {rows10} rows in {ms10:.3f} ms; staged inner 10M: {rowsa} rows in "
         f"{msa:.3f} ms; staged inner 2M bitonic: {rowsb} rows in {msb:.3f} ms")

@@ -52,9 +52,9 @@ def load_csv(
     *,
     capacity: int | None = None,
     dtype: torch.dtype = torch.int64,
-    device: str | torch.device = "cpu",
+    device: str | torch.device | None = None,
 ) -> Table:
-    """Load a CSV into a :class:`Table` on ``device``."""
+    """Load a CSV into a :class:`Table` on ``device`` (the card unless named)."""
     arr = load_csv_numpy(path)
     return Table.from_numpy(arr, capacity=capacity, dtype=dtype, device=device)
 

@@ -14,6 +14,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from pim_sort_merge_join_tpu_torch.device import resolve_device
+
 
 def key_sentinel(dtype: torch.dtype) -> int:
     """Sentinel for masked-out sort keys: the dtype's max, sorts last."""
@@ -67,9 +69,11 @@ class Table:
         capacity: int | None = None,
         names: Sequence[str] | None = None,
         dtype: torch.dtype = torch.int64,
-        device: str | torch.device = "cpu",
+        device: str | torch.device | None = None,
     ) -> "Table":
-        """Build a table on ``device`` from a row-major ``[nrow, ncol]`` host array."""
+        """Build a table on ``device`` (the card unless named) from a
+        row-major ``[nrow, ncol]`` host array."""
+        device = resolve_device(device)
         if array.ndim != 2:
             raise ValueError(f"expected 2D [nrow, ncol] array, got {array.shape}")
         nrow, ncol = array.shape
@@ -93,8 +97,9 @@ class Table:
         *,
         names=None,
         dtype: torch.dtype = torch.int64,
-        device: str | torch.device = "cpu",
+        device: str | torch.device | None = None,
     ) -> "Table":
+        device = resolve_device(device)
         return cls(
             data=torch.zeros((capacity, ncol), dtype=dtype, device=device),
             num_rows=torch.tensor(0, dtype=torch.int32, device=device),

@@ -17,6 +17,7 @@ import torch
 
 from pim_sort_merge_join_tpu_torch.columnar.table import Table
 from pim_sort_merge_join_tpu_torch.config import EngineConfig, Predicate
+from pim_sort_merge_join_tpu_torch.device import resolve_device
 
 
 def _predicate(p) -> Predicate:
@@ -39,9 +40,11 @@ def table_from_reference(
     data: np.ndarray,
     num_rows: int,
     names: Sequence[str],
-    device: str | torch.device = "cpu",
+    device: str | torch.device | None = None,
 ) -> Table:
-    """A port `Table` holding a JAX table's whole buffer, padding included."""
+    """A port `Table` holding a JAX table's whole buffer, padding included,
+    on ``device`` (the card unless named)."""
+    device = resolve_device(device)
     return Table(
         data=torch.from_numpy(np.array(data, order="C")).to(device),
         num_rows=torch.tensor(int(num_rows), dtype=torch.int32, device=device),

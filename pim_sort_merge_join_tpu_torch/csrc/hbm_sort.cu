@@ -1,102 +1,312 @@
-// Stable sort by key for the PyTorch port: chunk sort, merge passes, gather.
+// Stable sort by key for the PyTorch port: run sort, merge passes, gather.
 //
 // Replaces the TPU kernels of pim_sort_merge_join_tpu/ops/pallas/hbm_sort.py:
 //   phase A  _chunk_sort_kernel (bitonic sort of each VMEM chunk)
-//            -> chunk_sort_kernel below;
+//            -> run_sort_kernel below;
 //   phase B  _merge_path_meta + _merge_kernel (merge-path co-partitioned
-//            merge of adjacent runs) -> merge_partition_kernel + merge_kernel;
+//            merge of adjacent runs) -> merge_kernel, which finds its own
+//            split;
 //   payload  planes that rode every pass on the TPU -> gather_kernel, once.
 //
-// The element is a (uint64 key, uint32 index) pair compared
-// lexicographically. The index is the element's input position: it makes
-// the sort stable and every element unique, as the TPU's synthetic arange
-// plane did, so a merge never meets a tie. Signed keys are biased to the
-// unsigned order here (x ^ sign bit); two int32 keys pack into one uint64.
-// The last chunk is padded with key UINT64_MAX and indices >= n, which sort
-// after every real element, sentinel keys included.
+// It is a merge sort, as on the TPU: sorted runs of RUN elements formed on
+// chip, then pairwise merges of runs until one is left.
 //
-// What bounds it on an H100: device-memory traffic. Each merge pass reads
-// and writes 12 bytes per element, and there are ceil(log2(n / CHUNK))
-// passes. The design keeps every pass a streaming read and write: a CTA
-// stages its two input windows in shared memory and merges them there
-// (each element's output slot is its rank in its own window plus a binary
-// search in the other), so global memory sees only coalesced copies. The
-// merge-path split of each output tile is found once per pass by a
-// separate partition kernel, one thread per tile, so no CTA waits on a
-// dependent chain of global reads. The chunk sort is a shared-memory
-// bitonic network; gathers of the payload columns read at random once.
-// Later work: wider runs per pass, TMA staging, fewer passes.
+// The element. The wrapper picks one of three per sort (ops/kernels/
+// hbm_sort.py, element_kind); signed keys are biased to unsigned order
+// (x ^ sign bit):
+//   packed-32  one uint64: the int32 key in the high half, the element's
+//              input position in the low half. The position makes the sort
+//              stable and every element unique.
+//   pair-32    one uint64: two int32 keys and no other operand. No index:
+//              elements that tie are equal in every operand, so their order
+//              cannot be seen.
+//   wide       (uint64 key, uint32 position), compared lexicographically:
+//              an int64 key, or two int32 keys with payloads.
+// The kernels are templates on whether the element is wide. Padding up to a
+// multiple of RUN is UINT64_MAX (wide: with positions >= n), which no real
+// element exceeds; the last pass writes only the first n outputs.
+//
+// What bounds it on an H100: device-memory traffic in phase B, one read and
+// one write of every element per pass and ceil(log2(n / RUN)) passes, so
+// the design spends its effort on bytes per element and on the number of
+// passes.
+//   - An 8-byte element moves a third less than a (key, index) pair and
+//     compares as one integer.
+//   - Runs of RUN = 8192 come from one block, so a 20M sort takes 12 passes:
+//     each thread sorts 16 elements in registers with a fixed network, then
+//     the block merges neighbouring runs through shared memory, each thread
+//     finding its diagonal with one binary search and merging its 16
+//     outputs serially, one compare each. By bytes phase A could run at the
+//     memory rate; what it spends is those nine shared-memory rounds.
+//   - A merge pass is the same step on device memory. A block finds the
+//     merge-path split of its TILE outputs itself (two warps, each a 32-way
+//     search: about five dependent loads where a binary search takes
+//     twenty-four, and no partition launch), stages both windows in shared
+//     memory with coalesced loads, all started before the first is used,
+//     merges serially per thread, and sends the tile back through shared
+//     memory so that the stores are coalesced. One pass then runs near the
+//     memory rate; the passes' number is what is left to cut (a wider
+//     fan-in needs a multi-way split).
+//   - The last pass unpacks: it writes the sorted int32 key(s) and the
+//     permutation, so a pair-32 sort needs no gather and a packed-32 sort
+//     gathers only its payloads.
+//   - Shared-memory slots are padded by one per 16, which keeps a thread's
+//     16 consecutive elements off its neighbours' banks.
+// The gather reads at random once. Times at the paths' shapes are in
+// PERF.md.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#define SMJ_CHUNK 2048
-#define SMJ_CHUNK_THREADS 1024
-#define SMJ_TILE 2048
-#define SMJ_MERGE_THREADS 512
-#define SMJ_PARTITION_THREADS 256
+// Elements per thread, and the threads of a run-sort and of a merge block;
+// RUN and TILE follow. Compile-time constants: ops/kernels/hbm_sort.py
+// plans with the same two numbers and refuses a library that differs.
+#ifndef SMJ_ITEMS
+#define SMJ_ITEMS 16
+#endif
+#ifndef SMJ_RUN_THREADS
+#define SMJ_RUN_THREADS 512
+#endif
+#ifndef SMJ_TILE_THREADS
+#define SMJ_TILE_THREADS 256
+#endif
+#ifndef SMJ_RUN_BLOCKS_PER_SM
+#define SMJ_RUN_BLOCKS_PER_SM 2
+#endif
+#ifndef SMJ_TILE_BLOCKS_PER_SM
+#define SMJ_TILE_BLOCKS_PER_SM 4
+#endif
+#define SMJ_RUN (SMJ_RUN_THREADS * SMJ_ITEMS)
+#define SMJ_TILE (SMJ_TILE_THREADS * SMJ_ITEMS)
 #define SMJ_GATHER_THREADS 256
 #define SMJ_GATHER_MAX_COLS 8
 
 namespace {
 
-enum KeyKind { KIND_I32 = 0, KIND_I64 = 1, KIND_I32_PAIR = 2 };
+enum ElementKind { KIND_PACKED32 = 0, KIND_PAIR32 = 1, KIND_WIDE_I64 = 2, KIND_WIDE_PAIR = 3 };
 
-__device__ __forceinline__ uint64_t load_key(const void* k0, const void* k1, int kind,
-                                             int64_t g) {
-  if (kind == KIND_I32) {
-    return (uint64_t)((uint32_t)(static_cast<const int32_t*>(k0)[g]) ^ 0x80000000u);
-  }
-  if (kind == KIND_I64) {
-    return (uint64_t)(static_cast<const int64_t*>(k0)[g]) ^ 0x8000000000000000ull;
-  }
-  const uint64_t hi = (uint32_t)(static_cast<const int32_t*>(k0)[g]) ^ 0x80000000u;
-  const uint64_t lo = (uint32_t)(static_cast<const int32_t*>(k1)[g]) ^ 0x80000000u;
-  return (hi << 32) | lo;
-}
+constexpr uint32_t BIAS32 = 0x80000000u;
+constexpr uint64_t BIAS64 = 0x8000000000000000ull;
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
 __device__ __forceinline__ int64_t max64(int64_t a, int64_t b) { return a > b ? a : b; }
 
-__device__ __forceinline__ bool elem_less(uint64_t ka, uint32_t ia, uint64_t kb, uint32_t ib) {
-  return ka < kb || (ka == kb && ia < ib);
+// `i` is the position of a wide element and a constant 0 otherwise, so that
+// every use of it folds away.
+struct Elem {
+  uint64_t k;
+  uint32_t i;
+};
+
+template <bool WIDE>
+__device__ __forceinline__ bool less(const Elem& a, const Elem& b) {
+  if constexpr (WIDE) {
+    return a.k < b.k || (a.k == b.k && a.i < b.i);
+  } else {
+    return a.k < b.k;
+  }
 }
 
-// Phase A: one CTA sorts one CHUNK-element run with a bitonic network.
-__global__ void __launch_bounds__(SMJ_CHUNK_THREADS)
-chunk_sort_kernel(const void* k0, const void* k1, int kind, int64_t n, uint64_t* out_keys,
-                  uint32_t* out_idx) {
-  __shared__ uint64_t sk[SMJ_CHUNK];
-  __shared__ uint32_t si[SMJ_CHUNK];
-  const int64_t base = (int64_t)blockIdx.x * SMJ_CHUNK;
-  for (int t = threadIdx.x; t < SMJ_CHUNK; t += blockDim.x) {
-    const int64_t g = base + t;
-    sk[t] = g < n ? load_key(k0, k1, kind, g) : ~0ull;
-    si[t] = (uint32_t)g;
+template <bool WIDE>
+__device__ __forceinline__ Elem load_global(const uint64_t* keys, const uint32_t* idx, int64_t g) {
+  Elem e;
+  e.k = keys[g];
+  if constexpr (WIDE) {
+    e.i = idx[g];
+  } else {
+    e.i = 0;
   }
-  __syncthreads();
-  for (int k = 2; k <= SMJ_CHUNK; k <<= 1) {
+  return e;
+}
+
+template <int KIND>
+__device__ __forceinline__ Elem load_operands(const void* k0, const void* k1, int64_t g) {
+  Elem e;
+  e.i = KIND >= KIND_WIDE_I64 ? (uint32_t)g : 0u;
+  if constexpr (KIND == KIND_WIDE_I64) {
+    e.k = (uint64_t)(static_cast<const int64_t*>(k0)[g]) ^ BIAS64;
+  } else {
+    const uint64_t hi = (uint32_t)(static_cast<const int32_t*>(k0)[g]) ^ BIAS32;
+    uint64_t lo = (uint32_t)g;
+    if constexpr (KIND != KIND_PACKED32) {
+      lo = (uint32_t)(static_cast<const int32_t*>(k1)[g]) ^ BIAS32;
+    }
+    e.k = (hi << 32) | lo;
+  }
+  return e;
+}
+
+// A block's elements in shared memory: logical slot j lives at j + j / 16.
+__host__ __device__ constexpr int padded_slots(int n) { return n + n / SMJ_ITEMS + 2; }
+
+constexpr size_t shared_bytes(int n, bool wide) {
+  return (size_t)padded_slots(n) * (wide ? 12 : 8);
+}
+
+template <bool WIDE>
+struct Shared {
+  uint64_t* k;
+  uint32_t* i;
+
+  __device__ __forceinline__ explicit Shared(int n) {
+    extern __shared__ __align__(16) uint64_t smj_shared[];
+    k = smj_shared;
+    i = reinterpret_cast<uint32_t*>(smj_shared + padded_slots(n));
+  }
+
+  __device__ __forceinline__ Elem get(int j) const {
+    const int p = j + j / SMJ_ITEMS;
+    Elem e;
+    e.k = k[p];
+    if constexpr (WIDE) {
+      e.i = i[p];
+    } else {
+      e.i = 0;
+    }
+    return e;
+  }
+
+  __device__ __forceinline__ void put(int j, const Elem& e) const {
+    const int p = j + j / SMJ_ITEMS;
+    k[p] = e.k;
+    if constexpr (WIDE) i[p] = e.i;
+  }
+};
+
+// Bitonic network over a thread's 16 registers; every index is a constant
+// after unrolling.
+template <bool WIDE>
+__device__ __forceinline__ void sort_registers(Elem (&r)[SMJ_ITEMS]) {
+#pragma unroll
+  for (int k = 2; k <= SMJ_ITEMS; k <<= 1) {
+#pragma unroll
     for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int t = threadIdx.x; t < SMJ_CHUNK / 2; t += blockDim.x) {
-        const int i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
-        const int p = i + j;
-        const bool up = (i & k) == 0;
-        const uint64_t ka = sk[i], kb = sk[p];
-        const uint32_t ia = si[i], ib = si[p];
-        if (elem_less(kb, ib, ka, ia) == up) {
-          sk[i] = kb;
-          sk[p] = ka;
-          si[i] = ib;
-          si[p] = ia;
+#pragma unroll
+      for (int i = 0; i < SMJ_ITEMS; ++i) {
+        const int l = i ^ j;
+        if (l > i) {
+          const bool up = (i & k) == 0;
+          const Elem x = r[i], y = r[l];
+          const bool swap = up ? less<WIDE>(y, x) : less<WIDE>(x, y);
+          r[i] = swap ? y : x;
+          r[l] = swap ? x : y;
         }
       }
-      __syncthreads();
     }
   }
-  for (int t = threadIdx.x; t < SMJ_CHUNK; t += blockDim.x) {
-    out_keys[base + t] = sk[t];
-    out_idx[base + t] = si[t];
+}
+
+// Merge path over two sorted windows in shared memory, A = [a0, a0 + la) and
+// B = [b0, b0 + lb): how many of the first d merged outputs come from A.
+// A wins ties.
+template <bool WIDE>
+__device__ __forceinline__ int merge_path(const Shared<WIDE>& s, int a0, int la, int b0, int lb,
+                                          int d) {
+  int lo = max(0, d - lb), hi = min(d, la);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (!less<WIDE>(s.get(b0 + d - 1 - mid), s.get(a0 + mid))) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
   }
+  return lo;
+}
+
+// The next 16 outputs of the merge of [a, a_end) and [b, b_end), one compare
+// each. It reads one slot past a window's end, which the padding provides.
+template <bool WIDE>
+__device__ __forceinline__ void serial_merge(const Shared<WIDE>& s, int a, int a_end, int b,
+                                             int b_end, Elem (&r)[SMJ_ITEMS]) {
+  Elem ea = s.get(a), eb = s.get(b);
+#pragma unroll
+  for (int i = 0; i < SMJ_ITEMS; ++i) {
+    const bool take_a = b >= b_end || (a < a_end && !less<WIDE>(eb, ea));
+    r[i] = take_a ? ea : eb;
+    if (take_a) {
+      ea = s.get(++a);
+    } else {
+      eb = s.get(++b);
+    }
+  }
+}
+
+template <bool WIDE>
+__device__ __forceinline__ void put_blocked(const Shared<WIDE>& s, const Elem (&r)[SMJ_ITEMS]) {
+#pragma unroll
+  for (int i = 0; i < SMJ_ITEMS; ++i) s.put(threadIdx.x * SMJ_ITEMS + i, r[i]);
+}
+
+// Phase A: one block sorts one run of RUN elements.
+template <int KIND>
+__global__ void __launch_bounds__(SMJ_RUN_THREADS, KIND >= KIND_WIDE_I64 ? 1 : SMJ_RUN_BLOCKS_PER_SM)
+run_sort_kernel(const void* __restrict__ k0, const void* __restrict__ k1, int64_t n,
+                uint64_t* __restrict__ out_keys, uint32_t* __restrict__ out_idx) {
+  constexpr bool WIDE = KIND >= KIND_WIDE_I64;
+  const Shared<WIDE> s(SMJ_RUN);
+  const int64_t base = (int64_t)blockIdx.x * SMJ_RUN;
+  for (int j = threadIdx.x; j < SMJ_RUN; j += SMJ_RUN_THREADS) {
+    const int64_t g = base + j;
+    Elem e;
+    if (g < n) {
+      e = load_operands<KIND>(k0, k1, g);
+    } else {
+      e.k = ~0ull;
+      e.i = WIDE ? (uint32_t)g : 0u;
+    }
+    s.put(j, e);
+  }
+  __syncthreads();
+  Elem r[SMJ_ITEMS];
+  const int first = threadIdx.x * SMJ_ITEMS;
+#pragma unroll
+  for (int i = 0; i < SMJ_ITEMS; ++i) r[i] = s.get(first + i);
+  sort_registers<WIDE>(r);
+  for (int len = SMJ_ITEMS; len < SMJ_RUN; len <<= 1) {
+    __syncthreads();
+    put_blocked<WIDE>(s, r);
+    __syncthreads();
+    const int start = first & ~(2 * len - 1);
+    const int d = first - start;
+    const int a = merge_path<WIDE>(s, start, len, start + len, len, d);
+    serial_merge<WIDE>(s, start + a, start + len, start + len + d - a, start + 2 * len, r);
+  }
+  __syncthreads();
+  put_blocked<WIDE>(s, r);
+  __syncthreads();
+  for (int j = threadIdx.x; j < SMJ_RUN; j += SMJ_RUN_THREADS) {
+    const Elem e = s.get(j);
+    out_keys[base + j] = e.k;
+    if constexpr (WIDE) out_idx[base + j] = e.i;
+  }
+}
+
+// Merge path over two sorted runs in device memory by one warp: each step
+// probes 32 points of the remaining range at once. Every lane returns the
+// count of A elements among the first d merged outputs.
+template <bool WIDE>
+__device__ __forceinline__ int64_t warp_merge_path(const uint64_t* ak, const uint32_t* ai,
+                                                   const uint64_t* bk, const uint32_t* bi,
+                                                   int64_t la, int64_t lb, int64_t d, int lane) {
+  int64_t lo = max64(0, d - lb), hi = min64(d, la);
+  while (lo < hi) {
+    const int64_t chunk = (hi - lo + 31) / 32;
+    const int64_t mine = lo + lane * chunk;
+    const int64_t i = min64(mine + chunk - 1, hi - 1);
+    bool a_first = false;
+    if (mine < hi) {
+      a_first = !less<WIDE>(load_global<WIDE>(bk, bi, d - 1 - i), load_global<WIDE>(ak, ai, i));
+    }
+    // The probes are in order and the test is monotone: true for a prefix
+    // of the lanes.
+    const int c = __popc(__ballot_sync(0xffffffffu, a_first));
+    const int64_t next = lo + c * chunk;  // first index of lane c's range
+    const int64_t new_lo = c > 0 ? min64(next - 1, hi - 1) + 1 : lo;
+    if (c < 32 && next < hi) hi = min64(next + chunk - 1, hi - 1);
+    lo = new_lo;
+  }
+  return lo;
 }
 
 // The pair of runs that output position o of a pass falls in: A starts at
@@ -108,77 +318,71 @@ __device__ __forceinline__ void pair_bounds(int64_t o, int64_t npad, int64_t run
   lb = max64(0, min64(run, npad - s - run));
 }
 
-// Phase B, step 1: merge-path split of every output tile. a_start[t] is the
-// number of A elements among the first d outputs of tile t's pair, where d
-// is the tile's first output position within the pair.
-__global__ void merge_partition_kernel(const uint64_t* keys, const uint32_t* idx, int64_t npad,
-                                       int64_t run, int32_t* a_start) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= npad / SMJ_TILE) return;
-  int64_t s, la, lb;
-  const int64_t o = t * SMJ_TILE;
-  pair_bounds(o, npad, run, s, la, lb);
-  const int64_t d = o - s;
-  const uint64_t* ak = keys + s;
-  const uint32_t* ai = idx + s;
-  const uint64_t* bk = keys + s + la;
-  const uint32_t* bi = idx + s + la;
-  int64_t lo = max64(0, d - lb), hi = min64(d, la);
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    const int64_t j = d - 1 - mid;
-    if (elem_less(ak[mid], ai[mid], bk[j], bi[j])) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  a_start[t] = (int32_t)lo;
-}
-
-// Phase B, step 2: one CTA writes one TILE of the merged output. Its A and
-// B windows are staged in shared memory; each element's slot is its index
-// in its own window plus the count of smaller elements in the other.
-__global__ void __launch_bounds__(SMJ_MERGE_THREADS)
-merge_kernel(const uint64_t* keys, const uint32_t* idx, uint64_t* out_keys, uint32_t* out_idx,
-             const int32_t* a_start, int64_t npad, int64_t run) {
-  __shared__ uint64_t sk[SMJ_TILE];
-  __shared__ uint32_t si[SMJ_TILE];
-  const int64_t t = blockIdx.x;
-  const int64_t o = t * SMJ_TILE;
-  int64_t s, la, lb;
-  pair_bounds(o, npad, run, s, la, lb);
-  const int64_t d = o - s;
-  const int64_t a0 = a_start[t];
-  const int64_t a1 = (d + SMJ_TILE >= la + lb) ? la : (int64_t)a_start[t + 1];
-  const int na = (int)(a1 - a0);
-  const int64_t b0 = d - a0;
-  for (int e = threadIdx.x; e < SMJ_TILE; e += blockDim.x) {
-    const int64_t g = e < na ? s + a0 + e : s + la + b0 + (e - na);
-    sk[e] = keys[g];
-    si[e] = idx[g];
+// Phase B: one block writes one TILE of a pass's merged output. A last pass
+// (FINAL) writes the first n outputs unpacked: a wide element's position to
+// out1; an 8-byte element's high half as the int32 key to out0 and its low
+// half to out1, as a position (lo_bias 0) or a second int32 key (BIAS32).
+template <bool WIDE, bool FINAL>
+__global__ void __launch_bounds__(SMJ_TILE_THREADS, WIDE ? SMJ_TILE_BLOCKS_PER_SM / 2 : SMJ_TILE_BLOCKS_PER_SM)
+merge_kernel(const uint64_t* __restrict__ keys, const uint32_t* __restrict__ idx,
+             uint64_t* __restrict__ out_keys, uint32_t* __restrict__ out_idx, int64_t npad,
+             int64_t run, int64_t n, int32_t* __restrict__ out0, uint32_t* __restrict__ out1,
+             uint32_t lo_bias) {
+  const Shared<WIDE> s(SMJ_TILE);
+  __shared__ int64_t split[2];
+  const int tid = threadIdx.x;
+  const int64_t o = (int64_t)blockIdx.x * SMJ_TILE;
+  int64_t s0, la, lb;
+  pair_bounds(o, npad, run, s0, la, lb);
+  const int64_t d = o - s0;
+  const uint64_t* ak = keys + s0;
+  const uint64_t* bk = ak + la;
+  const uint32_t* ai = WIDE ? idx + s0 : nullptr;
+  const uint32_t* bi = WIDE ? ai + la : nullptr;
+  if (tid < 64) {
+    const int warp = tid >> 5, lane = tid & 31;
+    const int64_t a = warp_merge_path<WIDE>(ak, ai, bk, bi, la, lb, d + warp * SMJ_TILE, lane);
+    if (lane == 0) split[warp] = a;
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < SMJ_TILE; e += blockDim.x) {
-    const uint64_t k = sk[e];
-    const uint32_t i = si[e];
-    // Search the other window: B = [na, TILE) for an A element, A = [0, na)
-    // for a B element.
-    int lo = e < na ? na : 0;
-    int hi = e < na ? SMJ_TILE : na;
-    const int own = e < na ? e : e - na;
-    const int other0 = lo;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (elem_less(sk[mid], si[mid], k, i)) {
-        lo = mid + 1;
+  const int64_t a0 = split[0];
+  const int na = (int)(split[1] - a0);
+  const int64_t b0 = d - a0;
+
+  // Stage the A window in slots [0, na) and the B window after it.
+  Elem r[SMJ_ITEMS];
+#pragma unroll
+  for (int i = 0; i < SMJ_ITEMS; ++i) {
+    const int j = tid + i * SMJ_TILE_THREADS;
+    r[i] = j < na ? load_global<WIDE>(ak, ai, a0 + j) : load_global<WIDE>(bk, bi, b0 + (j - na));
+  }
+#pragma unroll
+  for (int i = 0; i < SMJ_ITEMS; ++i) s.put(tid + i * SMJ_TILE_THREADS, r[i]);
+  __syncthreads();
+
+  const int dt = tid * SMJ_ITEMS;
+  const int a = merge_path<WIDE>(s, 0, na, na, SMJ_TILE - na, dt);
+  serial_merge<WIDE>(s, a, na, na + dt - a, SMJ_TILE, r);
+  __syncthreads();
+  put_blocked<WIDE>(s, r);
+  __syncthreads();
+
+#pragma unroll
+  for (int i = 0; i < SMJ_ITEMS; ++i) {
+    const int j = tid + i * SMJ_TILE_THREADS;
+    const Elem e = s.get(j);
+    const int64_t g = o + j;
+    if constexpr (!FINAL) {
+      out_keys[g] = e.k;
+      if constexpr (WIDE) out_idx[g] = e.i;
+    } else if (g < n) {
+      if constexpr (WIDE) {
+        out1[g] = e.i;
       } else {
-        hi = mid;
+        out0[g] = (int32_t)((uint32_t)(e.k >> 32) ^ BIAS32);
+        out1[g] = (uint32_t)e.k ^ lo_bias;
       }
     }
-    const int64_t slot = o + own + (lo - other0);
-    out_keys[slot] = k;
-    out_idx[slot] = i;
   }
 }
 
@@ -189,53 +393,123 @@ struct GatherArgs {
   int ncols;
 };
 
-// out[c][i] = in[c][perm[i]] for every column c (int32 or int64).
-__global__ void gather_kernel(GatherArgs a, const uint32_t* perm, int64_t n) {
+// out[c][i] = in[c][perm[i]] for every column c (int32 or int64). Every
+// column's random read starts before the first store, so a thread has
+// them all in flight at once.
+__global__ void gather_kernel(GatherArgs a, const uint32_t* __restrict__ perm, int64_t n) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
     const int64_t j = perm[i];
-    for (int c = 0; c < a.ncols; ++c) {
-      if (a.size[c] == 8) {
-        static_cast<int64_t*>(a.dst[c])[i] = static_cast<const int64_t*>(a.src[c])[j];
-      } else {
-        static_cast<int32_t*>(a.dst[c])[i] = static_cast<const int32_t*>(a.src[c])[j];
+    int64_t v[SMJ_GATHER_MAX_COLS];
+#pragma unroll
+    for (int c = 0; c < SMJ_GATHER_MAX_COLS; ++c) {
+      if (c < a.ncols) {
+        v[c] = a.size[c] == 8 ? static_cast<const int64_t*>(a.src[c])[j]
+                              : (int64_t) static_cast<const int32_t*>(a.src[c])[j];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < SMJ_GATHER_MAX_COLS; ++c) {
+      if (c < a.ncols) {
+        if (a.size[c] == 8) {
+          static_cast<int64_t*>(a.dst[c])[i] = v[c];
+        } else {
+          static_cast<int32_t*>(a.dst[c])[i] = (int32_t)v[c];
+        }
       }
     }
   }
 }
 
+template <int KIND>
+cudaError_t launch_run_sort(const void* k0, const void* k1, int64_t n, void* out_keys,
+                            void* out_idx, cudaStream_t st) {
+  const size_t smem = shared_bytes(SMJ_RUN, KIND >= KIND_WIDE_I64);
+  cudaError_t err = cudaFuncSetAttribute(
+      run_sort_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int64_t nruns = (n + SMJ_RUN - 1) / SMJ_RUN;
+  run_sort_kernel<KIND><<<(unsigned)nruns, SMJ_RUN_THREADS, smem, st>>>(
+      k0, k1, n, static_cast<uint64_t*>(out_keys), static_cast<uint32_t*>(out_idx));
+  return cudaGetLastError();
+}
+
+template <bool WIDE, bool FINAL>
+cudaError_t launch_merge(const void* keys, const void* idx, void* out_keys, void* out_idx,
+                         int64_t npad, int64_t run, int64_t n, void* out0, void* out1,
+                         uint32_t lo_bias, cudaStream_t st) {
+  const size_t smem = shared_bytes(SMJ_TILE, WIDE);
+  cudaError_t err = cudaFuncSetAttribute(
+      merge_kernel<WIDE, FINAL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  merge_kernel<WIDE, FINAL><<<(unsigned)(npad / SMJ_TILE), SMJ_TILE_THREADS, smem, st>>>(
+      static_cast<const uint64_t*>(keys), static_cast<const uint32_t*>(idx),
+      static_cast<uint64_t*>(out_keys), static_cast<uint32_t*>(out_idx), npad, run, n,
+      static_cast<int32_t*>(out0), static_cast<uint32_t*>(out1), lo_bias);
+  return cudaGetLastError();
+}
+
+bool bad_pass(int64_t npad, int64_t run) {
+  return npad < SMJ_RUN || npad % SMJ_RUN != 0 || run < SMJ_RUN || run % SMJ_RUN != 0;
+}
+
 }  // namespace
 
-extern "C" int smj_hbm_sort_chunk_size() { return SMJ_CHUNK; }
+extern "C" int smj_hbm_sort_run_size() { return SMJ_RUN; }
 
 extern "C" int smj_hbm_sort_tile_size() { return SMJ_TILE; }
 
-// Sorts each CHUNK of keys; out_keys/out_idx hold ceil(n / CHUNK) * CHUNK.
+// Phase A. Builds the elements of `kind` from the key operand(s) and sorts
+// every RUN of them; out_keys (and out_idx, for a wide kind) hold
+// ceil(n / RUN) * RUN elements.
 extern "C" int smj_chunk_sort(const void* k0, const void* k1, int kind, int64_t n,
                               void* out_keys, void* out_idx, void* stream) {
-  const int64_t nchunks = (n + SMJ_CHUNK - 1) / SMJ_CHUNK;
-  chunk_sort_kernel<<<(unsigned)nchunks, SMJ_CHUNK_THREADS, 0, (cudaStream_t)stream>>>(
-      k0, k1, kind, n, static_cast<uint64_t*>(out_keys), static_cast<uint32_t*>(out_idx));
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  switch (kind) {
+    case KIND_PACKED32:
+      return (int)launch_run_sort<KIND_PACKED32>(k0, k1, n, out_keys, out_idx, st);
+    case KIND_PAIR32:
+      return (int)launch_run_sort<KIND_PAIR32>(k0, k1, n, out_keys, out_idx, st);
+    case KIND_WIDE_I64:
+      return (int)launch_run_sort<KIND_WIDE_I64>(k0, k1, n, out_keys, out_idx, st);
+    case KIND_WIDE_PAIR:
+      return (int)launch_run_sort<KIND_WIDE_PAIR>(k0, k1, n, out_keys, out_idx, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-// Merges adjacent sorted runs of length `run` from (keys, idx) into
-// (out_keys, out_idx); a_start is scratch of npad / TILE int32.
+// Phase B, a pass that is not the last: merges adjacent sorted runs of
+// length `run` (a multiple of RUN) from (keys, idx) into (out_keys,
+// out_idx); the idx arrays are used only for wide elements.
 extern "C" int smj_merge_pass(const void* keys, const void* idx, void* out_keys, void* out_idx,
-                              void* a_start, int64_t npad, int64_t run, void* stream) {
+                              int wide, int64_t npad, int64_t run, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  const int64_t ntiles = npad / SMJ_TILE;
-  const int64_t pblocks = (ntiles + SMJ_PARTITION_THREADS - 1) / SMJ_PARTITION_THREADS;
-  merge_partition_kernel<<<(unsigned)pblocks, SMJ_PARTITION_THREADS, 0, st>>>(
-      static_cast<const uint64_t*>(keys), static_cast<const uint32_t*>(idx), npad, run,
-      static_cast<int32_t*>(a_start));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  merge_kernel<<<(unsigned)ntiles, SMJ_MERGE_THREADS, 0, st>>>(
-      static_cast<const uint64_t*>(keys), static_cast<const uint32_t*>(idx),
-      static_cast<uint64_t*>(out_keys), static_cast<uint32_t*>(out_idx),
-      static_cast<const int32_t*>(a_start), npad, run);
-  return (int)cudaGetLastError();
+  if (bad_pass(npad, run)) return (int)cudaErrorInvalidValue;
+  if (wide) {
+    return (int)launch_merge<true, false>(keys, idx, out_keys, out_idx, npad, run, npad,
+                                          nullptr, nullptr, 0, st);
+  }
+  return (int)launch_merge<false, false>(keys, nullptr, out_keys, nullptr, npad, run, npad,
+                                         nullptr, nullptr, 0, st);
+}
+
+// Phase B, the last pass (2 * run >= npad): writes the first n outputs
+// unpacked. Wide: out1 = positions (uint32). Otherwise out0 = the int32
+// keys, out1 = positions, or the second int32 keys if low_is_key.
+extern "C" int smj_merge_pass_final(const void* keys, const void* idx, int wide, int64_t npad,
+                                    int64_t run, int64_t n, void* out0, void* out1,
+                                    int low_is_key, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (bad_pass(npad, run) || 2 * run < npad || n < 1 || n > npad) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (wide) {
+    return (int)launch_merge<true, true>(keys, idx, nullptr, nullptr, npad, run, n, nullptr,
+                                         out1, 0, st);
+  }
+  return (int)launch_merge<false, true>(keys, nullptr, nullptr, nullptr, npad, run, n, out0,
+                                        out1, low_is_key ? BIAS32 : 0u, st);
 }
 
 // Applies the permutation to up to SMJ_GATHER_MAX_COLS columns.

@@ -18,6 +18,7 @@ import torch
 from pim_sort_merge_join_tpu_torch.columnar import csv_io
 from pim_sort_merge_join_tpu_torch.columnar.table import Table
 from pim_sort_merge_join_tpu_torch.config import EngineConfig
+from pim_sort_merge_join_tpu_torch.device import resolve_device
 from pim_sort_merge_join_tpu_torch.engine.errors import JoinOverflowError
 from pim_sort_merge_join_tpu_torch.engine.metrics import MetricsCollector
 from pim_sort_merge_join_tpu_torch.ops import filter as filter_ops
@@ -66,12 +67,9 @@ def pipeline_core(t1: Table, t2: Table, config: EngineConfig) -> Table:
     )
 
 
-def _resolve_device(device: str | torch.device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("QueryPipeline(device='cuda'): no CUDA device is available")
-    elif dev.type != "cpu":
+def _resolve_device(device: str | torch.device | None) -> torch.device:
+    dev = resolve_device(device)  # raises when the card is asked for and absent
+    if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"QueryPipeline: unsupported device {dev}")
     return dev
 
@@ -79,11 +77,14 @@ def _resolve_device(device: str | torch.device) -> torch.device:
 class QueryPipeline:
     """Host-facing entry point: tables or CSV paths in, result table / CSV out.
 
-    ``device`` is where the tables live and the query runs: "cuda" runs the
-    hand-written kernels, "cpu" their plain torch versions.
+    ``device`` is where the tables live and the query runs: the card unless
+    named (`device.DEFAULT_DEVICE`), which runs the hand-written kernels;
+    "cpu" runs their plain torch versions and is used only when asked for.
     """
 
-    def __init__(self, config: EngineConfig | None = None, device: str | torch.device = "cpu"):
+    def __init__(
+        self, config: EngineConfig | None = None, device: str | torch.device | None = None
+    ):
         self.config = config or EngineConfig()
         self.device = _resolve_device(device)
         self.metrics = MetricsCollector(enabled=self.config.collect_metrics)

@@ -5,19 +5,26 @@ Replaces the TPU kernels of `pim_sort_merge_join_tpu/ops/pallas/hbm_sort.py`
 is the same: the result equals a stable sort of ``operands`` by
 ``operands[:num_keys]`` (``jax.lax.sort(..., is_stable=True)``).
 
-The card sorts one element type: a ``(uint64 key, uint32 index)`` pair
-(`csrc/hbm_sort.cu`). The index is the element's position, which makes the
-sort stable and every element unique. The kernels return the permutation,
-and one gather kernel applies it to every operand. What the 64-bit key can
-hold decides which sorts run on the card:
+It is a merge sort (`csrc/hbm_sort.cu`): one block sorts each run of `RUN`
+elements, then passes merge neighbouring runs until one is left, and the
+last pass unpacks the elements. `element_kind` picks the element from the
+operands' types:
 
-- one int32 or int64 key;
-- two int32 keys, packed into one 64-bit key;
-- an int64 key and a second key equal to ``arange(n)``: exactly the
-  stable sort of the first key.
+- *packed-32*, one 64-bit word: an int32 key in the high half and the
+  element's position in the low half. The last pass writes the sorted key
+  and the permutation, and one gather kernel applies it to the payloads.
+- *pair-32*, one 64-bit word: two int32 keys and no other operand. No
+  position and no gather: the last pass writes both sorted keys.
+- *wide*, a ``(uint64 key, uint32 position)`` pair: an int64 key (alone, or
+  with a second key equal to ``arange(n)``, which is exactly the stable
+  sort of the first), or two int32 keys with payloads. The last pass writes
+  the permutation and the gather applies it to every operand.
 
-Any other combination raises on CUDA tensors (ROADMAP: "Float keys and
-general num_keys=2 on CUDA").
+Signed keys are biased to unsigned order (``x ^ sign bit``). Any other
+combination raises on CUDA tensors (ROADMAP: "Float keys and general
+num_keys=2 on CUDA"). What the element looks like and how many passes a
+length takes are plain functions here (`pack_packed32`, `pack_pair32`,
+`pass_schedule`), which the CPU tests reach.
 """
 
 from __future__ import annotations
@@ -28,28 +35,47 @@ import torch
 
 from pim_sort_merge_join_tpu_torch.ops.kernels import build
 
-KIND_I32, KIND_I64, KIND_I32_PAIR = 0, 1, 2
-GATHER_MAX_COLS = 8  # SMJ_GATHER_MAX_COLS in csrc/hbm_sort.cu
+KIND_PACKED32, KIND_PAIR32, KIND_WIDE_I64, KIND_WIDE_PAIR = 0, 1, 2, 3
+WIDE_KINDS = (KIND_WIDE_I64, KIND_WIDE_PAIR)
+RUN = 8192  # SMJ_RUN in csrc/hbm_sort.cu: elements per phase-A run
+TILE = 4096  # SMJ_TILE: outputs of one merge block
+GATHER_MAX_COLS = 8  # SMJ_GATHER_MAX_COLS
 
 # Kernel launches by this module's wrappers, for showing which path ran.
 LAUNCHES = {"hbm_sort_chunk": 0, "hbm_sort_merge": 0, "hbm_sort_gather": 0}
 
+_MIN64 = -(2**63)
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
+_INT = ctypes.c_int
 _fns: dict = {}
 
 
 def _fn(name: str):
     if name not in _fns:
         argtypes = {
-            "smj_hbm_sort_chunk_size": [],
+            "smj_hbm_sort_run_size": [],
             "smj_hbm_sort_tile_size": [],
-            "smj_chunk_sort": [_P, _P, ctypes.c_int, _I64, _P, _P, _P],
-            "smj_merge_pass": [_P, _P, _P, _P, _P, _I64, _I64, _P],
-            "smj_gather": [_P, _P, _P, ctypes.c_int, _P, _I64, _P],
+            "smj_chunk_sort": [_P, _P, _INT, _I64, _P, _P, _P],
+            "smj_merge_pass": [_P, _P, _P, _P, _INT, _I64, _I64, _P],
+            "smj_merge_pass_final": [_P, _P, _INT, _I64, _I64, _I64, _P, _P, _INT, _P],
+            "smj_gather": [_P, _P, _P, _INT, _P, _I64, _P],
         }[name]
+        if not _fns:
+            sizes = tuple(
+                build.c_function(f, [])() for f in ("smj_hbm_sort_run_size", "smj_hbm_sort_tile_size")
+            )
+            if sizes != (RUN, TILE):
+                raise RuntimeError(
+                    f"hbm_sort: the library was built with (RUN, TILE) = {sizes}, "
+                    f"this module plans for {(RUN, TILE)}"
+                )
         _fns[name] = build.c_function(name, argtypes)
     return _fns[name]
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
 
 
 def hbm_sort_plain(
@@ -65,19 +91,23 @@ def hbm_sort_plain(
     return tuple(op[perm] for op in operands)
 
 
-def _key_kind(operands, num_keys: int):
-    """(k0, k1, kind) for the kernel, or raise for what it cannot take."""
+def element_kind(operands, num_keys: int) -> int:
+    """The element the kernels sort for these operands, or raise for what
+    they cannot take. Reads only dtypes, the operand count and, for an
+    int64 first key with a second key, whether that key is ``arange(n)``."""
     k0 = operands[0]
-    if num_keys == 1 and k0.dtype in (torch.int32, torch.int64):
-        return k0, k0, KIND_I32 if k0.dtype == torch.int32 else KIND_I64
+    if num_keys == 1 and k0.dtype == torch.int32:
+        return KIND_PACKED32
+    if num_keys == 1 and k0.dtype == torch.int64:
+        return KIND_WIDE_I64
     if num_keys == 2:
         k1 = operands[1]
         if k0.dtype == torch.int32 and k1.dtype == torch.int32:
-            return k0, k1, KIND_I32_PAIR
+            return KIND_PAIR32 if len(operands) == 2 else KIND_WIDE_PAIR
         if k0.dtype == torch.int64 and k1.dtype in (torch.int32, torch.int64):
             iota = torch.arange(k1.shape[0], dtype=k1.dtype, device=k1.device)
             if torch.equal(k1, iota):
-                return k0, k0, KIND_I64
+                return KIND_WIDE_I64
             raise ValueError(
                 "hbm_sort: a 2-key sort with an int64 first key needs a second "
                 "key equal to arange(n) (ROADMAP: 'Float keys and general "
@@ -90,58 +120,119 @@ def _key_kind(operands, num_keys: int):
     )
 
 
-def chunk_sort(k0: torch.Tensor, k1: torch.Tensor, kind: int):
-    """Phase A (kernel 1): sorted runs of CHUNK elements.
+def pack_packed32(key: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """The packed-32 element as the kernel builds it: the bits of
+    ``(key ^ sign bit) << 32 | index`` in an int64 tensor. Read as uint64,
+    the elements order by ``(key, index)``."""
+    return ((key.long() * 2**32) ^ _MIN64) | index.long()
 
-    Returns ``(keys, idx)``: biased uint64 keys (held in an int64 tensor)
-    and int32 indices, padded to a multiple of the chunk size.
+
+def unpack_packed32(bits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(key, index)`` as int32, the inverse of `pack_packed32`."""
+    key = (bits ^ _MIN64) >> 32
+    return key.to(torch.int32), (bits & 0xFFFFFFFF).to(torch.int32)
+
+
+def pack_pair32(k0: torch.Tensor, k1: torch.Tensor) -> torch.Tensor:
+    """The pair-32 element: both int32 keys biased to unsigned order, the
+    first in the high half. Read as uint64, the elements order by
+    ``(k0, k1)``."""
+    return ((k0.long() * 2**32) ^ _MIN64) | (k1.long() + 2**31)
+
+
+def unpack_pair32(bits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(k0, k1)`` as int32, the inverse of `pack_pair32`."""
+    k0 = (bits ^ _MIN64) >> 32
+    return k0.to(torch.int32), ((bits & 0xFFFFFFFF) - 2**31).to(torch.int32)
+
+
+def sort_elements_plain(bits: torch.Tensor) -> torch.Tensor:
+    """Sort 64-bit elements held in an int64 tensor by their unsigned value."""
+    return torch.sort(bits ^ _MIN64).values ^ _MIN64
+
+
+def pass_schedule(n: int) -> tuple[int, list[int]]:
+    """``(npad, runs)`` for ``n >= 1`` elements: the padded length, a
+    multiple of `RUN`, and the run length each merge pass takes as input.
+    There is always a last pass (it unpacks), also for a single run."""
+    if not 1 <= n < 2**31:
+        raise ValueError(f"hbm_sort: {n} elements, the kernels take 1 to 2^31 - 1")
+    npad = -(-n // RUN) * RUN
+    runs = [RUN]
+    while 2 * runs[-1] < npad:
+        runs.append(2 * runs[-1])
+    return npad, runs
+
+
+def key_operands(operands, kind: int):
+    """The two key pointers' tensors for `chunk_sort` (the second is unused
+    by the one-key kinds)."""
+    if kind in (KIND_PAIR32, KIND_WIDE_PAIR):
+        return operands[0], operands[1]
+    return operands[0], operands[0]
+
+
+def chunk_sort(k0: torch.Tensor, k1: torch.Tensor, kind: int):
+    """Phase A (kernel 1): the elements of ``kind``, in sorted runs of `RUN`.
+
+    Returns ``(keys, idx)``: the 64-bit words in an int64 tensor and, for a
+    wide kind, the int32 positions (else None), padded to a multiple of
+    `RUN`.
     """
     build.require_cuda("hbm_sort", k0, k1)
     n = k0.shape[0]
-    if n >= 2**31:
-        raise ValueError(f"hbm_sort: {n} elements exceed the 32-bit index")
-    chunk = _fn("smj_hbm_sort_chunk_size")()
-    npad = -(-n // chunk) * chunk
+    npad, _ = pass_schedule(n)
     keys = torch.empty(npad, dtype=torch.int64, device=k0.device)
-    idx = torch.empty(npad, dtype=torch.int32, device=k0.device)
+    idx = None
+    if kind in WIDE_KINDS:
+        idx = torch.empty(npad, dtype=torch.int32, device=k0.device)
     err = _fn("smj_chunk_sort")(
-        k0.data_ptr(), k1.data_ptr(), kind, n, keys.data_ptr(), idx.data_ptr(),
-        build.stream_ptr(k0),
+        k0.data_ptr(), k1.data_ptr(), kind, n, keys.data_ptr(), _ptr(idx), build.stream_ptr(k0),
     )
     build.check(err, "hbm_sort chunk sort")
     LAUNCHES["hbm_sort_chunk"] += 1
     return keys, idx
 
 
-def merge_passes(keys: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Phase B (kernel 2): merge the chunk runs pairwise until one is left.
+def merge_passes(keys: torch.Tensor, idx: torch.Tensor | None, kind: int, n: int):
+    """Phase B (kernel 2): merge the runs pairwise until one is left, and
+    unpack its first ``n`` elements in the last pass.
 
     Ping-pongs between the given buffers and a second pair, so the inputs
-    are overwritten. Returns the sorted indices, padding at the tail.
+    are overwritten. Returns two int32 ``[n]`` tensors ``(first, second)``:
+    packed-32 the sorted key and the permutation, pair-32 the two sorted
+    keys, wide ``None`` and the permutation.
     """
-    build.require_cuda("hbm_sort", keys, idx)
-    npad = keys.shape[0]
-    bufs = [(keys, idx), (torch.empty_like(keys), torch.empty_like(idx))]
-    a_start = torch.empty(
-        npad // _fn("smj_hbm_sort_tile_size")(), dtype=torch.int32, device=keys.device
-    )
-    stream = build.stream_ptr(keys)
-    src, run = 0, _fn("smj_hbm_sort_chunk_size")()
-    while run < npad:
-        (sk, si), (dk, di) = bufs[src], bufs[1 - src]
+    wide = kind in WIDE_KINDS
+    build.require_cuda("hbm_sort", keys, *((idx,) if wide else ()))
+    npad, runs = pass_schedule(n)
+    if keys.shape != (npad,) or (wide and idx.shape != (npad,)):
+        raise ValueError(f"hbm_sort: {n} elements need run buffers of {npad}")
+    dev, stream = keys.device, build.stream_ptr(keys)
+    src = (keys, idx if wide else None)
+    if len(runs) > 1:
+        dst = (torch.empty_like(keys), torch.empty_like(idx) if wide else None)
+    for run in runs[:-1]:
         err = _fn("smj_merge_pass")(
-            sk.data_ptr(), si.data_ptr(), dk.data_ptr(), di.data_ptr(),
-            a_start.data_ptr(), npad, run, stream,
+            _ptr(src[0]), _ptr(src[1]), _ptr(dst[0]), _ptr(dst[1]), int(wide), npad, run, stream,
         )
         build.check(err, "hbm_sort merge pass")
         LAUNCHES["hbm_sort_merge"] += 1
-        src, run = 1 - src, run * 2
-    return bufs[src][1]
+        src, dst = dst, src
+    first = None if wide else torch.empty(n, dtype=torch.int32, device=dev)
+    second = torch.empty(n, dtype=torch.int32, device=dev)
+    err = _fn("smj_merge_pass_final")(
+        _ptr(src[0]), _ptr(src[1]), int(wide), npad, runs[-1], n, _ptr(first), _ptr(second),
+        int(kind == KIND_PAIR32), stream,
+    )
+    build.check(err, "hbm_sort last merge pass")
+    LAUNCHES["hbm_sort_merge"] += 1
+    return first, second
 
 
-def sort_permutation(k0: torch.Tensor, k1: torch.Tensor, kind: int) -> torch.Tensor:
-    """int32 ``[n]`` permutation that stably sorts the key (kernels 1 + 2)."""
-    return merge_passes(*chunk_sort(k0, k1, kind))[: k0.shape[0]]
+def sort_elements(k0: torch.Tensor, k1: torch.Tensor, kind: int):
+    """Kernels 1 + 2 on the key operand(s): `merge_passes` of `chunk_sort`."""
+    return merge_passes(*chunk_sort(k0, k1, kind), kind, k0.shape[0])
 
 
 def gather(perm: torch.Tensor, operands: tuple[torch.Tensor, ...]) -> tuple[torch.Tensor, ...]:
@@ -189,7 +280,12 @@ def hbm_sort(
         return hbm_sort_plain(operands, num_keys)
     if devices != {"cuda"}:
         raise ValueError(f"hbm_sort: unsupported devices {sorted(devices)}")
-    k0, k1, kind = _key_kind(operands, num_keys)
+    kind = element_kind(operands, num_keys)
     if n == 0:
         return operands
-    return gather(sort_permutation(k0, k1, kind), operands)
+    first, second = sort_elements(*key_operands(operands, kind), kind)
+    if kind == KIND_PAIR32:
+        return first, second
+    if kind == KIND_PACKED32:
+        return (first,) + (gather(second, operands[1:]) if len(operands) > 1 else ())
+    return gather(second, operands)

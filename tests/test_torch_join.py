@@ -71,7 +71,7 @@ def _run_both(name, narrow, narrow_data, monkeypatch):
         jfilter.predicate_mask(jt1, JPredicate(*p1)), jfilter.predicate_mask(jt2, JPredicate(*p2)),
         narrow=narrow, narrow_data=narrow_data,
     )
-    t1, t2 = (table_from_reference(np.asarray(t.data), int(t.num_rows), t.names) for t in (jt1, jt2))
+    t1, t2 = (table_from_reference(np.asarray(t.data), int(t.num_rows), t.names, device="cpu") for t in (jt1, jt2))
     got = join_ops.filter_join_one_to_one(
         t1, t2, 0, 0,
         filter_ops.predicate_mask(t1, Predicate(*p1)), filter_ops.predicate_mask(t2, Predicate(*p2)),
@@ -114,7 +114,7 @@ def test_merge_join_one_to_one_matches_reference(monkeypatch):
     o2 = np.argsort(r2[:, 0], kind="stable")
     jt1, jt2 = JTable.from_numpy(r1[o1]), JTable.from_numpy(r2[o2], capacity=400)
     want = jjoin.merge_join_one_to_one(jt1, jt2, 0, 0)
-    t1, t2 = (table_from_reference(np.asarray(t.data), int(t.num_rows), t.names) for t in (jt1, jt2))
+    t1, t2 = (table_from_reference(np.asarray(t.data), int(t.num_rows), t.names, device="cpu") for t in (jt1, jt2))
     _assert_same(join_ops.merge_join_one_to_one(t1, t2, 0, 0), want)
 
 

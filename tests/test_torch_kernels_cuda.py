@@ -37,6 +37,42 @@ def test_hbm_sort_kernel_matches_plain(cuda):
             assert torch.equal(g, w), name
 
 
+@pytest.mark.parametrize("kind", ["packed32", "pair32", "wide_pair", "wide_i64"])
+def test_hbm_sort_element_kinds_at_run_and_tile_edges(cuda, kind):
+    import chip_smoke
+    from pim_sort_merge_join_tpu_torch.ops import kernels
+    from pim_sort_merge_join_tpu_torch.ops.kernels import hbm_sort as hs
+
+    cases = [c for c in chip_smoke.element_edge_cases(np.random.default_rng(65))
+             if c[0].startswith(kind)]
+    assert len(cases) >= 6
+    for name, arrays, num_keys in cases:
+        ops = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in arrays)
+        kernels.reset_launch_counts()
+        got = hs.hbm_sort(ops, num_keys)
+        counts = kernels.launch_counts()
+        # One run sort, one launch per pass of the schedule, and a gather
+        # unless the last pass wrote every operand itself.
+        assert counts["hbm_sort_chunk"] == 1, name
+        assert counts["hbm_sort_merge"] == len(hs.pass_schedule(len(arrays[0]))[1]), name
+        assert (counts["hbm_sort_gather"] == 0) == (kind == "pair32"), name
+        for g, w in zip(got, hs.hbm_sort_plain(ops, num_keys)):
+            assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+def test_default_device_is_the_card(cuda):
+    from pim_sort_merge_join_tpu_torch import QueryPipeline, Table
+    from pim_sort_merge_join_tpu_torch.columnar import csv_io
+    from pim_sort_merge_join_tpu_torch.convert import table_from_reference
+
+    assert QueryPipeline().device.type == "cuda"
+    rows = np.arange(12, dtype=np.int64).reshape(4, 3)
+    assert Table.from_numpy(rows).device.type == "cuda"
+    assert Table.empty(3, 8).num_rows.device.type == "cuda"
+    assert table_from_reference(rows, 4, ("a", "b", "c")).device.type == "cuda"
+    assert csv_io.load_csv.__kwdefaults__["device"] is None
+
+
 def test_join_scan_kernel_matches_plain(cuda):
     import chip_smoke
     from pim_sort_merge_join_tpu_torch.ops.join import _merged_dest_plain
@@ -80,11 +116,12 @@ def test_radix_runs_merge_into_the_hbm_sort_permutation(cuda):
     n = 100_003
     keys = torch.randint(0, 50_000, (n,), dtype=torch.int32, device=cuda)
     pos = torch.arange(n, dtype=torch.int32, device=cuda)
-    npad = -(-n // 2048) * 2048
+    npad, _ = hs.pass_schedule(n)
     kp = torch.cat([keys, torch.full((npad - n,), 2**31 - 1, dtype=torch.int32, device=cuda)])
     pp = torch.arange(npad, dtype=torch.int32, device=cuda)
-    want = hs.sort_permutation(keys, pos, hs.KIND_I32_PAIR)
-    assert torch.equal(chip_smoke.radix_runs_merged(kp, pp, n), want)
+    want = hs.sort_elements(keys, pos, hs.KIND_PAIR32)
+    for g, w in zip(chip_smoke.radix_runs_merged(kp, pp, n), want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("key_offset", [0, 2**40])
@@ -100,7 +137,9 @@ def test_pipeline_on_card_matches_cpu(cuda, key_offset):
     )
     ran = {name for name, n in kernels.launch_counts().items() if n > 0}
     assert ran == chip_smoke.FUSED_KERNELS
-    want = QueryPipeline(cfg).run_tables(Table.from_numpy(r1), Table.from_numpy(r2))
+    want = QueryPipeline(cfg, device="cpu").run_tables(
+        Table.from_numpy(r1, device="cpu"), Table.from_numpy(r2, device="cpu")
+    )
     assert torch.equal(got.data.cpu(), want.data)
     assert int(got.num_rows) == int(want.num_rows) > 0
 
@@ -121,7 +160,9 @@ def test_staged_pipeline_on_card_matches_cpu(cuda, sort_algorithm):
     if sort_algorithm == "pallas_bitonic":
         want_ran = chip_smoke.STAGED_BITONIC_KERNELS
     assert ran == want_ran
-    want = QueryPipeline(cfg).run_tables(Table.from_numpy(r1), Table.from_numpy(r2))
+    want = QueryPipeline(cfg, device="cpu").run_tables(
+        Table.from_numpy(r1, device="cpu"), Table.from_numpy(r2, device="cpu")
+    )
     assert torch.equal(got.data.cpu(), want.data)
     assert int(got.num_rows) == int(want.num_rows) > 0
 

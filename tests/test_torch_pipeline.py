@@ -28,8 +28,8 @@ def _both_run_tables(ref_cfg, r1, r2, cap1=None, cap2=None):
     jt2 = smj.Table.from_numpy(r2, capacity=cap2)
     jpipe = smj.QueryPipeline(ref_cfg)
     want = jpipe.run_tables(jt1, jt2)
-    t1, t2 = (table_from_reference(np.asarray(t.data), int(t.num_rows), t.names) for t in (jt1, jt2))
-    pipe = QueryPipeline(config_from_reference(ref_cfg))
+    t1, t2 = (table_from_reference(np.asarray(t.data), int(t.num_rows), t.names, device="cpu") for t in (jt1, jt2))
+    pipe = QueryPipeline(config_from_reference(ref_cfg), device="cpu")
     got = pipe.run_tables(t1, t2)
     np.testing.assert_array_equal(got.data.numpy(), np.asarray(want.data))
     assert int(got.num_rows) == int(want.num_rows)
@@ -64,8 +64,8 @@ def test_run_tables_probe_and_options_match_reference(kind):
         cfg = smj.EngineConfig(dtype="int32", predicate1=cfg.predicate1, predicate2=cfg.predicate2)
         jt1, jt2 = (smj.Table.from_numpy(r, dtype=np.int32) for r in (r1, r2))
         want = smj.QueryPipeline(cfg).run_tables(jt1, jt2)
-        t1, t2 = (table_from_reference(np.asarray(t.data), int(t.num_rows), t.names) for t in (jt1, jt2))
-        got = QueryPipeline(config_from_reference(cfg)).run_tables(t1, t2)
+        t1, t2 = (table_from_reference(np.asarray(t.data), int(t.num_rows), t.names, device="cpu") for t in (jt1, jt2))
+        got = QueryPipeline(config_from_reference(cfg), device="cpu").run_tables(t1, t2)
         assert got.data.dtype == torch.int32
         np.testing.assert_array_equal(got.data.numpy(), np.asarray(want.data))
         assert int(got.num_rows) == int(want.num_rows)
@@ -92,7 +92,7 @@ def test_run_csv_byte_identical_to_reference(tmp_path, narrow_keys):
     cfg = smj.EngineConfig(narrow_keys=narrow_keys)
     o_ref, o_port = str(tmp_path / "ref.csv"), str(tmp_path / "port.csv")
     smj.QueryPipeline(cfg).run_csv(p1, p2, o_ref)
-    pipe = QueryPipeline(config_from_reference(cfg))
+    pipe = QueryPipeline(config_from_reference(cfg), device="cpu")
     res = pipe.run_csv(p1, p2, o_port)
     with open(o_ref, "rb") as f_ref, open(o_port, "rb") as f_port:
         assert f_port.read() == f_ref.read()
@@ -106,11 +106,11 @@ def test_run_csv_validates_narrow_and_dtype(tmp_path):
     rows = np.array([[2**31, 1, 1, 1], [5, 2, 2**31, 2]], dtype=np.int64)
     p1, p2 = _write_pair(tmp_path, rows, rows)
     with pytest.raises(MalformedInputError, match="narrow_keys"):
-        QueryPipeline(EngineConfig(narrow_keys=True)).run_csv(p1, p2)
+        QueryPipeline(EngineConfig(narrow_keys=True), device="cpu").run_csv(p1, p2)
     with pytest.raises(MalformedInputError, match="narrow_data"):
-        QueryPipeline(EngineConfig(narrow_data=True)).run_csv(p1, p2)
+        QueryPipeline(EngineConfig(narrow_data=True), device="cpu").run_csv(p1, p2)
     with pytest.raises(MalformedInputError, match="int32"):
-        QueryPipeline(EngineConfig(dtype="int32")).run_csv(p1, p2)
+        QueryPipeline(EngineConfig(dtype="int32"), device="cpu").run_csv(p1, p2)
 
 
 def test_port_imports_without_jax():
@@ -136,7 +136,31 @@ def test_cuda_pipeline_without_gpu_raises():
         QueryPipeline(EngineConfig(), device="meta")
 
 
+def test_default_device_without_gpu_raises_and_never_runs_on_the_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the no-GPU refusal")
+    from pim_sort_merge_join_tpu_torch import device as device_mod
+
+    assert device_mod.DEFAULT_DEVICE == "cuda"
+    rows = np.arange(12, dtype=np.int64).reshape(4, 3)
+    p = str(tmp_path / "t.csv")
+    csv_io.write_csv(p, rows)
+    for make in (
+        QueryPipeline,
+        lambda: QueryPipeline(EngineConfig()),
+        lambda: Table.from_numpy(rows),
+        lambda: Table.empty(3, 8),
+        lambda: csv_io.load_csv(p),
+        lambda: table_from_reference(rows, 4, ("a", "b", "c")),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    # The CPU is there when asked for by name.
+    assert QueryPipeline(device="cpu").device.type == "cpu"
+    assert Table.from_numpy(rows, device="cpu").device.type == "cpu"
+
+
 def test_tables_on_another_device_are_refused():
     t = Table.from_numpy(np.ones((4, 3), np.int64), device="meta")
     with pytest.raises(ValueError, match="pipeline on cpu"):
-        QueryPipeline(EngineConfig()).run_tables(t, t)
+        QueryPipeline(EngineConfig(), device="cpu").run_tables(t, t)

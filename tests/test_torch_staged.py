@@ -41,7 +41,7 @@ ALGORITHMS = ["auto", "xla", "hbm_pallas", "hbm_adaptive", "pallas_bitonic"]
 
 
 def _port(jt):
-    return table_from_reference(np.asarray(jt.data), int(jt.num_rows), jt.names)
+    return table_from_reference(np.asarray(jt.data), int(jt.num_rows), jt.names, device="cpu")
 
 
 def _assert_same(got, want):
@@ -280,7 +280,7 @@ def test_run_tables_inner_matches_reference(kind, port_sort):
     jt1, jt2 = _jtable(r1, cap1), _jtable(r2, cap2)
     jpipe = smj.QueryPipeline(ref_cfg)
     want = jpipe.run_tables(jt1, jt2)
-    pipe = QueryPipeline(port_cfg)
+    pipe = QueryPipeline(port_cfg, device="cpu")
     got = pipe.run_tables(_port(jt1), _port(jt2))
     _assert_same(got, want)
     assert int(got.num_rows) > 0
@@ -315,7 +315,7 @@ def test_run_tables_inner_empty_results_match_reference(kind, port_sort):
     ref_cfg, port_cfg = _inner_configs(port_sort, **kw)
     jt1, jt2 = _jtable(r1, cap), _jtable(r2, cap)
     want = smj.QueryPipeline(ref_cfg).run_tables(jt1, jt2)
-    got = QueryPipeline(port_cfg).run_tables(_port(jt1), _port(jt2))
+    got = QueryPipeline(port_cfg, device="cpu").run_tables(_port(jt1), _port(jt2))
     _assert_same(got, want)
     assert int(got.num_rows) == 0
 
@@ -342,7 +342,7 @@ def test_run_csv_inner_byte_identical_to_reference(tmp_path, port_sort):
     )
     o_ref, o_port = str(tmp_path / "ref.csv"), str(tmp_path / "port.csv")
     smj.QueryPipeline(ref_cfg).run_csv(p1, p2, o_ref)
-    res = QueryPipeline(port_cfg).run_csv(p1, p2, o_port)
+    res = QueryPipeline(port_cfg, device="cpu").run_csv(p1, p2, o_port)
     with open(o_ref, "rb") as f_ref, open(o_port, "rb") as f_port:
         assert f_port.read() == f_ref.read()
     assert int(res.num_rows) > 0
@@ -359,7 +359,7 @@ def test_inner_overflow_raises_when_the_reference_does(join_slack):
     with pytest.raises(jerrors.JoinOverflowError) as ref_err:
         smj.QueryPipeline(ref_cfg).run_tables(_jtable(r1), _jtable(r2))
     with pytest.raises(JoinOverflowError) as port_err:
-        QueryPipeline(port_cfg).run_tables(
+        QueryPipeline(port_cfg, device="cpu").run_tables(
             _port(_jtable(r1)), _port(_jtable(r2))
         )
     assert port_err.value.true_rows == ref_err.value.true_rows
@@ -383,7 +383,7 @@ def test_staged_configs_construct_and_carry_across():
 def test_staged_plain_path_launches_no_kernel():
     rng = np.random.default_rng(96)
     kernels.reset_launch_counts()
-    QueryPipeline(EngineConfig(join_mode="inner", sort_algorithm="pallas_bitonic")).run_tables(
+    QueryPipeline(EngineConfig(join_mode="inner", sort_algorithm="pallas_bitonic"), device="cpu").run_tables(
         _port(_jtable(_dup_rows(rng, 100))), _port(_jtable(_dup_rows(rng, 100)))
     )
     assert all(n == 0 for n in kernels.launch_counts().values())

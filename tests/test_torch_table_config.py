@@ -28,7 +28,9 @@ def test_table_matches_reference(dtype, capacity):
     rng = np.random.default_rng(41)
     rows = rng.integers(-1000, 1000, size=(250, 4)).astype(dtype)
     jt = JTable.from_numpy(rows, capacity=capacity, dtype=dtype)
-    t = Table.from_numpy(rows, capacity=capacity, dtype=torch.from_numpy(rows).dtype)
+    t = Table.from_numpy(
+        rows, capacity=capacity, dtype=torch.from_numpy(rows).dtype, device="cpu"
+    )
     np.testing.assert_array_equal(t.data.numpy(), np.asarray(jt.data))
     assert t.num_rows.dtype == torch.int32 and int(t.num_rows) == int(jt.num_rows)
     assert t.names == jt.names and t.capacity == jt.capacity and t.ncol == jt.ncol
@@ -39,20 +41,20 @@ def test_table_matches_reference(dtype, capacity):
         np.testing.assert_array_equal(
             t.with_capacity(cap).data.numpy(), np.asarray(jt.with_capacity(cap).data)
         )
-    back = table_from_reference(np.asarray(jt.data), int(jt.num_rows), jt.names)
+    back = table_from_reference(np.asarray(jt.data), int(jt.num_rows), jt.names, device="cpu")
     assert torch.equal(back.data, t.data) and int(back.num_rows) == int(t.num_rows)
     assert back.names == t.names
 
 
 def test_empty_table_and_sentinels_match_reference():
     jt = JTable.empty(3, 16)
-    t = Table.empty(3, 16)
+    t = Table.empty(3, 16, device="cpu")
     np.testing.assert_array_equal(t.data.numpy(), np.asarray(jt.data))
     assert int(t.num_rows) == 0 and t.names == jt.names
     for tdt, jdt in ((torch.int32, jnp.int32), (torch.int64, jnp.int64)):
         assert key_sentinel(tdt) == int(jkey_sentinel(jdt))
     with pytest.raises(ValueError, match="capacity"):
-        Table.from_numpy(np.zeros((5, 2), np.int64), capacity=4)
+        Table.from_numpy(np.zeros((5, 2), np.int64), capacity=4, device="cpu")
 
 
 def test_config_from_reference_roundtrip():
@@ -139,7 +141,7 @@ def test_csv_io_matches_reference(tmp_path):
     assert p1.read_bytes() == p2.read_bytes()
     np.testing.assert_array_equal(csv_io.load_csv_numpy(str(p1)), jcsv.load_csv_numpy(str(p2)))
     assert csv_io.probe_csv(str(p1)) == jcsv.probe_csv(str(p2))
-    t = csv_io.load_csv(str(p1), capacity=512)
+    t = csv_io.load_csv(str(p1), capacity=512, device="cpu")
     np.testing.assert_array_equal(t.data.numpy(), np.asarray(jcsv.load_csv(str(p2), capacity=512).data))
     (tmp_path / "ragged.csv").write_text("col1,col2\n1,2\n3\n")
     with pytest.raises(ValueError, match="ragged"):
