@@ -12,12 +12,15 @@ Phases, in order; any failure exits non-zero:
   1. card details (nvidia-smi, torch, CUDA, nvcc);
   2. build the kernels from `pim_sort_merge_join_tpu_torch/csrc/` (first use);
   3. every kernel against its plain torch version on the card, exactly:
-     adversarial cases, then the shapes the paths give them, timed with
-     CUDA events (median of 3 after a warmup): the fused path's at 10M
-     rows/table (each of its three sorts as phase A, phase B and whole,
-     beside stable `torch.sort` of the key alone), the bitonic sort at its
-     2^21 cap, and the radix tile sort at the merge sort's 20M elements,
-     beside the chunk sort. The radix sort then forms the runs of that
+     adversarial cases (each join-scan kernel against its own plain half
+     and the pair against the whole plain scan, with int64 and int32 keys),
+     then the shapes the paths give them, timed with CUDA events (median of
+     3 after a warmup): the fused path's at 10M rows/table (each of its
+     three sorts as phase A, phase B and whole, beside stable `torch.sort`
+     of the key alone; the join scans over its 20M int32 keys and over the
+     1M wide-keys query's 2M int64 keys), the bitonic sort at its 2^21 cap,
+     and the radix tile sort at the merge sort's 20M elements, beside the
+     chunk sort. The radix sort then forms the runs of that
      merge sort (run formation: radix runs + merge passes), which must
      equal the `hbm_sort` result;
   4. the query at 100k rows/table through `QueryPipeline.run_csv`: rows and
@@ -193,7 +196,11 @@ def merged_case(rng, n1, n2, pool, dtype=np.int64, sentinel_frac=0.1):
 
 
 def scan_cases(rng):
-    """(name, mkeys, mpos, cap1): runs across blocks, dead keys, empty sides."""
+    """(name, mkeys, mpos, cap1): runs across blocks, dead keys, empty
+    sides, lengths at the scan block's edges, one run and a dead tail
+    across more than 40 blocks each, and 2^22 random elements."""
+    from pim_sort_merge_join_tpu_torch.ops.kernels import join_scan as js
+
     wide = np.array([-(2**40), -5, 0, 7, 2**40])
     cases = []
     for n1, n2 in ((700, 900), (7000, 9000)):
@@ -209,7 +216,47 @@ def scan_cases(rng):
                       np.arange(n, dtype=np.int32), cap1))
     for n, cap1 in ((1000, 600), (50000, 30000)):
         cases.append((f"one_run_{n}", np.full(n, 42, np.int64), np.arange(n, dtype=np.int32), cap1))
+    block = js.block_size()
+    n = 41 * block + 17
+    cases.append(("one_run_41_blocks", np.full(n, 42, np.int64), np.arange(n, dtype=np.int32),
+                  17 * block + 3))
+    # 60 blocks of which three quarters are dead: a sentinel run of 45 blocks.
+    cases.append(("dead_tail_45_blocks",
+                  *merged_case(rng, 20 * block, 40 * block, np.arange(1, 9 * block),
+                               sentinel_frac=0.75)))
+    mk, mp, cap1 = merged_case(rng, 17 * block, 17 * block, np.arange(1, 5 * block))
+    for n in (block - 1, block, block + 1, 33 * block + 5):
+        # A prefix of a merged sequence is one too.
+        cases.append((f"block_edge_{n}", mk[:n].copy(), mp[:n].copy(), cap1))
+    cases.append(("random_2^22", *merged_case(rng, 2**21, 2**21, np.arange(1, 3 * 2**21))))
     return cases
+
+
+def key_widths(mkeys):
+    """The keys as int64 and, where every live key fits, as int32 (the
+    sentinel is each type's maximum)."""
+    i32, i64 = np.iinfo(np.int32), np.iinfo(np.int64)
+    if mkeys.dtype == np.int32:
+        return [np.where(mkeys == i32.max, i64.max, mkeys.astype(np.int64)), mkeys]
+    live = mkeys[mkeys != i64.max]
+    if live.size and (live.min() < i32.min or live.max() >= i32.max):
+        return [mkeys]
+    return [mkeys, np.where(mkeys == i64.max, i32.max, mkeys).astype(np.int32)]
+
+
+def scan_errs(mk, mp, cap1) -> dict[str, int]:
+    """Largest difference of each scan kernel from its own plain half, and
+    of the pair from the whole plain scan, on tensors on the card."""
+    from pim_sort_merge_join_tpu_torch.ops.join import _merged_dest_plain
+    from pim_sort_merge_join_tpu_torch.ops.kernels import join_scan as js
+
+    want_fw = js.join_scan_forward_plain(mk, mp, cap1)
+    return {
+        "scan_forward": max_abs_err(js.join_scan_forward(mk, mp, cap1), want_fw),
+        "scan_backward": max_abs_err(js.join_scan_backward(mk, *want_fw),
+                                     js.join_scan_backward_plain(mk, *want_fw)),
+        "scan": max_abs_err(js.join_scan_cuda(mk, mp, cap1), _merged_dest_plain(mk, mp, cap1)),
+    }
 
 
 I32MIN, I32MAX = np.iinfo(np.int32).min, np.iinfo(np.int32).max
@@ -293,14 +340,11 @@ def phase_build() -> None:
 def phase_adversarial(rng) -> dict[str, int]:
     import torch
 
-    from pim_sort_merge_join_tpu_torch.ops.join import _merged_dest_plain
-    from pim_sort_merge_join_tpu_torch.ops.kernels import hbm_sort as hs
-    from pim_sort_merge_join_tpu_torch.ops.kernels import join_scan as js
-
     from pim_sort_merge_join_tpu_torch.ops.kernels import bitonic_sort as bs
+    from pim_sort_merge_join_tpu_torch.ops.kernels import hbm_sort as hs
     from pim_sort_merge_join_tpu_torch.ops.kernels import radix_sort as rs
 
-    errs = {"sort": 0, "scan": 0, "bitonic": 0, "radix": 0}
+    errs = {"sort": 0, "scan": 0, "scan_forward": 0, "scan_backward": 0, "bitonic": 0, "radix": 0}
     sorts, scans = sort_cases(rng), scan_cases(rng)
     bitonics, radixes = bitonic_cases(rng), radix_cases(rng)
     for name, arrays, num_keys in sorts:
@@ -309,10 +353,12 @@ def phase_adversarial(rng) -> dict[str, int]:
         check(err == 0, f"hbm_sort case {name}: kernel differs from plain (max err {err})")
         errs["sort"] = max(errs["sort"], err)
     for name, mkeys, mpos, cap1 in scans:
-        mk, mp = torch.from_numpy(mkeys).cuda(), torch.from_numpy(mpos).cuda()
-        err = max_abs_err(js.join_scan_cuda(mk, mp, cap1), _merged_dest_plain(mk, mp, cap1))
-        check(err == 0, f"join_scan case {name}: kernel differs from plain (max err {err})")
-        errs["scan"] = max(errs["scan"], err)
+        mp = torch.from_numpy(mpos).cuda()
+        for keys in key_widths(mkeys):
+            for which, err in scan_errs(torch.from_numpy(keys).cuda(), mp, cap1).items():
+                check(err == 0, f"join_scan case {name}, {keys.dtype} keys: {which} differs "
+                                f"from plain (max err {err})")
+                errs[which] = max(errs[which], err)
     for name, keys, vals in bitonics:
         k, v = torch.from_numpy(keys).cuda(), torch.from_numpy(vals).cuda()
         err = max_abs_err(bs.sort_pairs(k, v), plain_sort_pairs(k, v))
@@ -384,6 +430,54 @@ def time_sort(rec: dict, name: str, ops: tuple, num_keys: int) -> None:
     rec[f"{name}_bound_ms"] = bound(2 * nbytes(*ops))["bound_ms"]
 
 
+def time_scan(rec: dict, prefix: str, mkeys, mpos, cap1: int) -> None:
+    """The two scan kernels on one merged input: each against its own plain
+    half and the pair against the whole plain scan (exact), their times,
+    the plain versions' and the bounds."""
+    from pim_sort_merge_join_tpu_torch.ops.join import _merged_dest_plain
+    from pim_sort_merge_join_tpu_torch.ops.kernels import join_scan as js
+
+    n = mkeys.shape[0]
+    errs = scan_errs(mkeys, mpos, cap1)
+    rec[f"{prefix}forward_err"] = errs["scan_forward"]
+    rec[f"{prefix}backward_err"] = errs["scan_backward"]
+    rec[f"{prefix}scan_err"] = errs["scan"]
+    cand, m2 = js.join_scan_forward(mkeys, mpos, cap1)
+    dest, _ = js.join_scan_backward(mkeys, cand, m2)
+    rec[f"{prefix}scan_n"] = n
+    rec[f"{prefix}scan_plain_ms"] = time_ms(lambda _: _merged_dest_plain(mkeys, mpos, cap1))
+    rec[f"{prefix}forward_ms"] = time_ms(lambda _: js.join_scan_forward(mkeys, mpos, cap1))
+    rec[f"{prefix}forward_plain_ms"] = time_ms(lambda _: js.join_scan_forward_plain(mkeys, mpos, cap1))
+    rec[f"{prefix}backward_ms"] = time_ms(lambda _: js.join_scan_backward(mkeys, cand, m2))
+    rec[f"{prefix}backward_plain_ms"] = time_ms(lambda _: js.join_scan_backward_plain(mkeys, cand, m2))
+    rec[f"{prefix}forward_bound"] = bound(nbytes(mkeys, mpos, cand, m2), compares=4 * n)
+    rec[f"{prefix}backward_bound"] = bound(nbytes(mkeys, cand, m2, dest), compares=4 * n)
+    for which in ("forward_err", "backward_err", "scan_err"):
+        check(rec[prefix + which] == 0,
+              f"main-path shape {prefix}{which} = {rec[prefix + which]}: kernel differs from plain")
+
+
+def wide_merged_keys():
+    """The merge sort's output in the 1M-rows/table query with keys offset
+    by 2^40: 2M int64 keys, their positions and cap1, on the card."""
+    import torch
+
+    from pim_sort_merge_join_tpu_torch import Table
+    from pim_sort_merge_join_tpu_torch.columnar.table import key_sentinel
+    from pim_sort_merge_join_tpu_torch.ops import filter as filter_ops
+    from pim_sort_merge_join_tpu_torch.ops.kernels import hbm_sort as hs
+
+    r1, r2, cfg = slice_inputs(1_000_000, key_offset=2**40)
+    t1, t2 = Table.from_numpy(r1), Table.from_numpy(r2)
+    sent = key_sentinel(t1.dtype)
+    k1 = torch.where(filter_ops.predicate_mask(t1, cfg.predicate1), t1.data[:, 0], sent)
+    k2 = torch.where(filter_ops.predicate_mask(t2, cfg.predicate2), t2.data[:, 0], sent)
+    n = t1.capacity + t2.capacity
+    pos = torch.arange(n, dtype=torch.int32, device="cuda")
+    mkeys, mpos = hs.hbm_sort((torch.cat([k1, k2]), pos), 2)
+    return mkeys, mpos, t1.capacity
+
+
 def phase_main_path_shapes(r1, r2, cfg) -> dict:
     """Each kernel at the shapes the 10M-row query gives it, vs plain."""
     import torch
@@ -391,7 +485,7 @@ def phase_main_path_shapes(r1, r2, cfg) -> dict:
     from pim_sort_merge_join_tpu_torch import Table
     from pim_sort_merge_join_tpu_torch.columnar.table import key_sentinel
     from pim_sort_merge_join_tpu_torch.ops import filter as filter_ops
-    from pim_sort_merge_join_tpu_torch.ops.join import _merged_dest_plain, _narrow32
+    from pim_sort_merge_join_tpu_torch.ops.join import _narrow32
     from pim_sort_merge_join_tpu_torch.ops.kernels import hbm_sort as hs
     from pim_sort_merge_join_tpu_torch.ops.kernels import join_scan as js
 
@@ -422,16 +516,12 @@ def phase_main_path_shapes(r1, r2, cfg) -> dict:
                     **bound(8 * npad + nbytes(mkeys, mpos), compares=len(runs) * npad)}
     del elements
 
-    # Join scan over the merged 2n int32 keys.
+    # Join scan over the merged 2n int32 keys, then over the 1M wide-keys
+    # query's 2M int64 keys.
+    time_scan(rec, "", mkeys, mpos, cap1)
     dest, num_out = js.join_scan_cuda(mkeys, mpos, cap1)
-    rec["scan_err"] = max_abs_err((dest, num_out), _merged_dest_plain(mkeys, mpos, cap1))
-    rec["scan_plain_ms"] = time_ms(lambda _: _merged_dest_plain(mkeys, mpos, cap1))
-    rec["forward_ms"] = time_ms(lambda _: js.join_scan_forward(mkeys, mpos, cap1))
-    cand, m2 = js.join_scan_forward(mkeys, mpos, cap1)
-    rec["backward_ms"] = time_ms(lambda _: js.join_scan_backward(mkeys, cand, m2))
-    rec["forward_bound"] = bound(nbytes(mkeys, mpos, cand, m2), compares=4 * n)
-    rec["backward_bound"] = bound(nbytes(mkeys, cand, m2, dest), compares=4 * n)
     rec["num_out"] = int(num_out)
+    time_scan(rec, "wide_", *wide_merged_keys())
 
     # Un-merge sort: 2n, one unique int32 key and one payload (packed-32).
     unmerge_ops = (mpos, dest)
@@ -453,7 +543,7 @@ def phase_main_path_shapes(r1, r2, cfg) -> dict:
                      "library_ms": time_ms(lambda _: stacked.index_select(1, perm)),
                      **bound(nbytes(perm) + 2 * nbytes(*cols))}
     torch.cuda.synchronize()
-    for key in ("merge_sort_err", "scan_err", "unmerge_sort_err", "emit_sort_err", "gather_err"):
+    for key in ("merge_sort_err", "unmerge_sort_err", "emit_sort_err", "gather_err"):
         check(rec[key] == 0, f"main-path shape {key} = {rec[key]}: kernel differs from plain")
     log("main-path shapes (ms, kernel vs plain vs library): " + json.dumps(rec))
     del stacked, cols
@@ -674,7 +764,9 @@ def phase_profile() -> None:
         for e in on_card:
             t, c = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (t + e.time_range.end - e.time_range.start, c + 1)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]
+        ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+        # The 14 longest, and the join scans wherever they rank.
+        top = ranked[:14] + [kv for kv in ranked[14:] if "join_scan" in kv[0]]
         log(f"profile {label}: host {host_ms:.3f} ms under the profiler; device span "
             f"{(end - start) / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms "
             f"({100 * (1 - busy / (end - start)):.1f}% idle), {len(on_card)} device activities; "
@@ -737,7 +829,11 @@ def main() -> int:
     ref = "pim_sort_merge_join_tpu/ops/pallas/"
     sort_err = max(errs["sort"], shapes["merge_sort_err"], shapes["unmerge_sort_err"],
                    shapes["emit_sort_err"])
-    scan_err = max(errs["scan"], shapes["scan_err"])
+    pair_err = max(errs["scan"], shapes["scan_err"], shapes["wide_scan_err"])
+    forward_err = max(pair_err, errs["scan_forward"], shapes["forward_err"],
+                      shapes["wide_forward_err"])
+    backward_err = max(pair_err, errs["scan_backward"], shapes["backward_err"],
+                       shapes["wide_backward_err"])
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound_rec, library_ms=None):
         return {"name": name, "route": "cuda", "source": src + source,
@@ -757,11 +853,11 @@ def main() -> int:
               max(sort_err, shapes["gather_err"]), gather["ms"], gather["plain_ms"], gather,
               gather["library_ms"]),
         entry("join_scan_forward", "join_scan.cu", "join_scan.py:137",
-              launches["join_scan_forward"], scan_err, shapes["forward_ms"],
-              shapes["scan_plain_ms"], shapes["forward_bound"]),
+              launches["join_scan_forward"], forward_err, shapes["forward_ms"],
+              shapes["forward_plain_ms"], shapes["forward_bound"]),
         entry("join_scan_backward", "join_scan.cu", "join_scan.py:216",
-              launches["join_scan_backward"], scan_err, shapes["backward_ms"],
-              shapes["scan_plain_ms"], shapes["backward_bound"]),
+              launches["join_scan_backward"], backward_err, shapes["backward_ms"],
+              shapes["backward_plain_ms"], shapes["backward_bound"]),
         entry("bitonic_sort", "bitonic_sort.cu", "sort_kernel.py:138",
               launches_b["bitonic_local"] + launches_b["bitonic_global"],
               max(errs["bitonic"], bitonic["bitonic_err"]), bitonic["bitonic_ms"],

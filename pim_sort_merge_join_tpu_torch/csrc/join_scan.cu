@@ -5,43 +5,82 @@
 //   _backward_kernel -> join_scan_backward_kernel
 // and computes exactly what ops/join._merged_dest_plain computes. Input: the
 // merge sort's output, keys ascending with side-1 elements (mpos < cap1)
-// before side-2 elements within each equal-key run. Forward: side-2 prefix
-// count c2, run-head broadcasts run_start and base2, ranks, side-2 matches
-// and their prefix m2cum; a matched side-2 element gets its slot m2cum - 1,
-// a live side-1 element the complement of its candidate slot m2cum + rank,
-// anything else the drop value n. Backward: the suffix minimum of the
-// tail-gated m2cum is each run's total match count, which settles the
-// side-1 candidates.
+// before side-2 elements within each equal-key run. Forward: ranks within
+// the run, side-2 matches and their prefix m2cum; a matched side-2 element
+// gets its slot m2cum - 1, a live side-1 element the complement of its
+// candidate slot m2cum + rank, anything else the drop value n. Backward:
+// the suffix minimum of the tail-gated m2cum is each run's total match
+// count, which settles the side-1 candidates.
 //
 // The TPU ran the tiles in order and carried the scan state in SMEM. CUDA
-// blocks run in no order, so the carry is a chain: each block takes a
-// ticket (atomicAdd) in launch order, so every block it waits for is
-// already resident, and thread 0 waits for its predecessor's published
-// state, then publishes its own. The block computes everything it can
-// before it waits, so the wait is followed by O(1) work: the state at its
-// end (c2, base2, run_start, m2cum) follows from the carry in and a few
-// block totals, because only the elements before the block's first run
-// head depend on the carry, and within that partial run the side-1
-// elements precede the side-2 ones, so its side-2 matches have a closed
-// form. Keys for head and tail tests are read from the input itself.
+// blocks run in no order, so both passes are single-pass scans with a
+// decoupled look-back. The carry is an associative summary of a segment
+// (ops/kernels/join_scan.py has it in plain Python, `segment_summary` and
+// `combine`): because side 1 precedes side 2 within a run, a run is two
+// live counts (n1, n2) with min(n1, n2) matches, so a segment is
+//   has_head        whether a run starts in it,
+//   p1, p2          live side-1 / side-2 counts before its first run head,
+//   closed          matches of the runs that start and end in it,
+//   t1, t2          live counts from its last run head to its end,
+// and combine(A, B) closes A's open run with B's leading counts. Dead
+// (sentinel-key) elements count for nothing. The backward carry is a min.
 //
-// What bounds it on an H100: the chain. Each block hop costs a global
-// write, fence and read (about a microsecond), so the time grows with
-// n / JS_BLOCK; the arithmetic is a few block scans per pass. Traffic is
-// 12-16 bytes per element in each pass. Later work: a decoupled look-back
-// over an associative form of the run state, to take the chain off the
-// critical path.
+// A block takes a ticket (atomicAdd), so every block it looks back at is
+// already resident. It publishes the summary of its own elements as soon as
+// its local scans are done, waiting for nobody. Then warp 0 looks back, 32
+// records at a time, combining aggregates in order until it meets a record
+// that is an inclusive prefix, and the block publishes its own inclusive
+// prefix. A record is one 16-byte (forward) or 8-byte (backward) word with
+// its status inside, written and read by one relaxed vector access, so a
+// reader sees either the aggregate or the prefix whole and no fence is
+// needed. Only the elements before a block's first run head depend on the
+// carry, and their matches have a closed form, so after the look-back a
+// block does no further block-wide scan.
+//
+// What bounds it on an H100: bytes, 16 per element in each pass (keys and
+// positions in, two int32 out; keys, candidates and m2cum in, one out).
+// Full blocks read and write with 128-bit accesses when the arrays are
+// 16-byte aligned; the last partial block takes scalar, guarded accesses.
+// On an H100 at 700 W a pass over 20M int32 keys takes 0.19 ms (forward)
+// and 0.15 ms (backward) of device time against 0.096 ms for its bytes
+// (PERF.md); the rest is the three block scans before a block publishes
+// and the look-back's wait, with 3 or 4 blocks resident per SM to hide it.
 
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#ifndef JS_THREADS
 #define JS_THREADS 512
+#endif
+#ifndef JS_ITEMS
 #define JS_ITEMS 8
+#endif
+// Resident threads per SM the compiler must leave registers for. On an
+// H100 the forward pass ran best at 3 blocks of 512 threads (40 registers a
+// thread; at 32 it spills), the backward pass at 4 blocks (32 registers).
+#ifndef JS_FORWARD_THREADS_PER_SM
+#define JS_FORWARD_THREADS_PER_SM 1536
+#endif
+#ifndef JS_BACKWARD_THREADS_PER_SM
+#define JS_BACKWARD_THREADS_PER_SM 2048
+#endif
+#define JS_BLOCKS_PER_SM(threads) ((threads) / JS_THREADS > 0 ? (threads) / JS_THREADS : 1)
 #define JS_BLOCK (JS_THREADS * JS_ITEMS)
 #define JS_WARPS (JS_THREADS / 32)
 
+// Block-local counts ride in 16-bit halves of one int.
+static_assert(JS_ITEMS % 4 == 0 && JS_ITEMS <= 32, "items per thread: a multiple of 4, at most 32");
+static_assert(JS_BLOCK <= 16384, "block-local counts must fit 15 bits");
+static_assert(JS_THREADS % 32 == 0 && JS_THREADS <= 1024, "whole warps");
+
 namespace {
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned SPIN_PAUSE_NS = 20;  // between two reads of an unwritten record
+constexpr int ST_NONE = 0;       // record not written yet (the state is zeroed)
+constexpr int ST_AGGREGATE = 1;  // the block's own elements
+constexpr int ST_PREFIX = 2;     // everything up to and including the block
 
 struct Sum {
   __device__ int operator()(int a, int b) const { return a + b; }
@@ -74,7 +113,7 @@ __device__ int block_exclusive_scan(int v, int identity, Op op, int* total) {
   int x = v;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, off);
+    const int y = __shfl_up_sync(FULL, x, off);
     if (lane >= off) x = op(x, y);
   }
   if (lane == 31) warp_tot[warp] = x;
@@ -83,247 +122,446 @@ __device__ int block_exclusive_scan(int v, int identity, Op op, int* total) {
     int w = lane < JS_WARPS ? warp_tot[lane] : identity;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, off);
+      const int y = __shfl_up_sync(FULL, w, off);
       if (lane >= off) w = op(w, y);
     }
     if (lane < JS_WARPS) warp_tot[lane] = w;
   }
   __syncthreads();
   const int before_warp = warp > 0 ? warp_tot[warp - 1] : identity;
-  int before_lane = __shfl_up_sync(0xffffffffu, x, 1);
+  int before_lane = __shfl_up_sync(FULL, x, 1);
   if (lane == 0) before_lane = identity;
   *total = warp_tot[JS_WARPS - 1];
   __syncthreads();  // warp_tot is reused by the next scan
   return op(before_warp, before_lane);
 }
 
-// Published carry record of block b: [flag, values...], 8 ints apart after
-// an 8-int header whose first int is the ticket counter.
-__device__ __forceinline__ volatile int* record(int32_t* state, int b) {
-  return state + 8 + 8 * b;
+// --- a thread's JS_ITEMS consecutive elements --------------------------------
+
+__device__ __forceinline__ void unpack16(const int4& x, int32_t* o) {
+  o[0] = x.x;
+  o[1] = x.y;
+  o[2] = x.z;
+  o[3] = x.w;
+}
+__device__ __forceinline__ void unpack16(const int4& x, int64_t* o) {
+  o[0] = (int64_t)(((uint64_t)(uint32_t)x.y << 32) | (uint32_t)x.x);
+  o[1] = (int64_t)(((uint64_t)(uint32_t)x.w << 32) | (uint32_t)x.z);
 }
 
-__device__ __forceinline__ void wait_ready(const volatile int* rec) {
-  while (rec[0] == 0) __nanosleep(32);
-  __threadfence();
+// out[q] = p[i0 + q]; `vec` (the whole block lies inside the array and the
+// array is 16-byte aligned) takes 128-bit loads, else out-of-range items
+// get `fill`.
+template <typename T>
+__device__ __forceinline__ void load_items(const T* __restrict__ p, int64_t i0, int64_t n, bool vec,
+                                           T fill, T (&out)[JS_ITEMS]) {
+  if (vec) {
+    constexpr int PER = 16 / (int)sizeof(T);
+    const int4* v = reinterpret_cast<const int4*>(p + i0);
+#pragma unroll
+    for (int j = 0; j < JS_ITEMS / PER; ++j) unpack16(__ldg(v + j), &out[j * PER]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < JS_ITEMS; ++q) out[q] = i0 + q < n ? p[i0 + q] : fill;
+  }
 }
 
-__device__ __forceinline__ void publish(volatile int* rec) {
-  __threadfence();
-  rec[0] = 1;
+__device__ __forceinline__ void store_items(int32_t* __restrict__ p, int64_t i0, int64_t n, bool vec,
+                                            const int32_t (&v)[JS_ITEMS]) {
+  if (vec) {
+    int4* o = reinterpret_cast<int4*>(p + i0);
+#pragma unroll
+    for (int j = 0; j < JS_ITEMS / 4; ++j)
+      o[j] = make_int4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < JS_ITEMS; ++q)
+      if (i0 + q < n) p[i0 + q] = v[q];
+  }
 }
+
+// --- published records --------------------------------------------------------
+// One relaxed access moves a whole record, status included, so a reader
+// never sees half of one. The state starts zeroed: status ST_NONE.
+
+__device__ __forceinline__ int4 load_record16(const int4* p) {
+  int4 r;
+  asm volatile("ld.relaxed.gpu.v4.s32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+               : "l"(p)
+               : "memory");
+  return r;
+}
+__device__ __forceinline__ void store_record16(int4* p, const int4& r) {
+  asm volatile("st.relaxed.gpu.v4.s32 [%0], {%1, %2, %3, %4};"
+               :
+               : "l"(p), "r"(r.x), "r"(r.y), "r"(r.z), "r"(r.w)
+               : "memory");
+}
+__device__ __forceinline__ unsigned long long load_record8(const unsigned long long* p) {
+  unsigned long long r;
+  asm volatile("ld.relaxed.gpu.u64 %0, [%1];" : "=l"(r) : "l"(p) : "memory");
+  return r;
+}
+__device__ __forceinline__ void store_record8(unsigned long long* p, unsigned long long r) {
+  asm volatile("st.relaxed.gpu.u64 [%0], %1;" : : "l"(p), "l"(r) : "memory");
+}
+
+// --- the forward carry --------------------------------------------------------
+
+struct Summary {
+  int has_head, p1, p2, closed, t1, t2;
+};
+
+__device__ __forceinline__ Summary empty_summary() { return Summary{0, 0, 0, 0, 0, 0}; }
+
+// The summary of segment A followed by segment B.
+__device__ __forceinline__ Summary combine(const Summary& a, const Summary& b) {
+  Summary r;
+  if (!b.has_head) {
+    r = a;
+    if (a.has_head) {
+      r.t1 += b.p1;
+      r.t2 += b.p2;
+    } else {
+      r.p1 += b.p1;
+      r.p2 += b.p2;
+    }
+  } else if (!a.has_head) {
+    r = b;
+    r.p1 += a.p1;
+    r.p2 += a.p2;
+  } else {
+    r.has_head = 1;
+    r.p1 = a.p1;
+    r.p2 = a.p2;
+    r.closed = a.closed + min(a.t1 + b.p1, a.t2 + b.p2) + b.closed;
+    r.t1 = b.t1;
+    r.t2 = b.t2;
+  }
+  return r;
+}
+
+// An aggregate's counts are at most JS_BLOCK and share words; a prefix
+// starts at element 0, which is a run head, so it has no leading counts and
+// its three fields take a word each.
+__device__ __forceinline__ int4 encode_aggregate(const Summary& s) {
+  return make_int4(ST_AGGREGATE, (s.p1 << 16) | s.p2, (s.t1 << 16) | s.t2,
+                   (s.has_head << 16) | s.closed);
+}
+__device__ __forceinline__ int4 encode_prefix(const Summary& s) {
+  return make_int4(ST_PREFIX, s.closed, s.t1, s.t2);
+}
+__device__ __forceinline__ Summary decode(const int4& r) {
+  if (r.x == ST_PREFIX) return Summary{1, 0, 0, r.y, r.z, r.w};
+  return Summary{r.w >> 16, r.y >> 16, r.y & 0xffff, r.w & 0xffff, r.z >> 16, r.z & 0xffff};
+}
+
+__device__ __forceinline__ Summary shfl_down_summary(const Summary& s, int off) {
+  return Summary{__shfl_down_sync(FULL, s.has_head, off), __shfl_down_sync(FULL, s.p1, off),
+                 __shfl_down_sync(FULL, s.p2, off),       __shfl_down_sync(FULL, s.closed, off),
+                 __shfl_down_sync(FULL, s.t1, off),       __shfl_down_sync(FULL, s.t2, off)};
+}
+
+// The summary of everything before block b (b >= 1), by one whole warp.
+// Lane l reads the record of block j - l and waits only while that one
+// record is unwritten; the nearest prefix ends the walk.
+__device__ Summary look_back_forward(const int4* recs, int b) {
+  const int lane = threadIdx.x & 31;
+  Summary before = empty_summary();
+  for (int j = b - 1;; j -= 32) {
+    const int idx = j - lane;
+    int status = ST_PREFIX;  // lanes past block 0 stand for an empty prefix
+    Summary s = empty_summary();
+    if (idx >= 0) {
+      int4 r = load_record16(recs + idx);
+      while (r.x == ST_NONE) {
+        __nanosleep(SPIN_PAUSE_NS);
+        r = load_record16(recs + idx);
+      }
+      status = r.x;
+      s = decode(r);
+    }
+    const unsigned prefixes = __ballot_sync(FULL, status == ST_PREFIX);
+    if (prefixes != 0 && lane > __ffs(prefixes) - 1) s = empty_summary();
+    // Ordered reduction: higher lanes hold earlier blocks.
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const Summary o = shfl_down_summary(s, off);
+      if (lane + off < 32) s = combine(o, s);
+    }
+    Summary window;
+    window.has_head = __shfl_sync(FULL, s.has_head, 0);
+    window.p1 = __shfl_sync(FULL, s.p1, 0);
+    window.p2 = __shfl_sync(FULL, s.p2, 0);
+    window.closed = __shfl_sync(FULL, s.closed, 0);
+    window.t1 = __shfl_sync(FULL, s.t1, 0);
+    window.t2 = __shfl_sync(FULL, s.t2, 0);
+    before = combine(window, before);
+    if (prefixes != 0) return before;
+  }
+}
+
+// The min over the blocks that took tickets 0 .. t-1 (t >= 1).
+__device__ int look_back_backward(const unsigned long long* recs, int t) {
+  const int lane = threadIdx.x & 31;
+  int after = INT_MAX;
+  for (int j = t - 1;; j -= 32) {
+    const int idx = j - lane;
+    int status = ST_PREFIX;
+    int v = INT_MAX;
+    if (idx >= 0) {
+      unsigned long long r = load_record8(recs + idx);
+      while ((int)(r >> 32) == ST_NONE) {
+        __nanosleep(SPIN_PAUSE_NS);
+        r = load_record8(recs + idx);
+      }
+      status = (int)(r >> 32);
+      v = (int)(uint32_t)r;
+    }
+    const unsigned prefixes = __ballot_sync(FULL, status == ST_PREFIX);
+    if (prefixes != 0 && lane > __ffs(prefixes) - 1) v = INT_MAX;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v = min(v, __shfl_xor_sync(FULL, v, off));
+    after = min(after, v);
+    if (prefixes != 0) return after;
+  }
+}
+
+__device__ __forceinline__ unsigned long long encode_min(int status, int v) {
+  return ((unsigned long long)(uint32_t)status << 32) | (uint32_t)v;
+}
+
+// Two counts in one int: side 1 in the high half, side 2 in the low half.
+__device__ __forceinline__ int hi16(int packed) { return packed >> 16; }
+__device__ __forceinline__ int lo16(int packed) { return packed & 0xffff; }
 
 template <typename KeyT>
-__global__ void __launch_bounds__(JS_THREADS)
-join_scan_forward_kernel(const KeyT* keys, const int32_t* mpos, int64_t n, int cap1,
-                         int32_t* cand, int32_t* m2out, int32_t* state) {
+__global__ void __launch_bounds__(JS_THREADS, JS_BLOCKS_PER_SM(JS_FORWARD_THREADS_PER_SM))
+join_scan_forward_kernel(const KeyT* __restrict__ keys, const int32_t* __restrict__ mpos, int64_t n,
+                         int cap1, int aligned, int32_t* __restrict__ cand,
+                         int32_t* __restrict__ m2out, int32_t* state) {
   __shared__ int s_ticket;
-  __shared__ int s_carry[4];
-  if (threadIdx.x == 0) s_ticket = atomicAdd(&state[0], 1);
+  __shared__ int s_first;  // live counts before the block's first run head
+  __shared__ int s_carry[3];
+  if (threadIdx.x == 0) {
+    s_ticket = atomicAdd(&state[0], 1);
+    s_first = 0;
+  }
   __syncthreads();
   const int b = s_ticket;
   const int64_t base = (int64_t)b * JS_BLOCK;
-  const int t0 = threadIdx.x * JS_ITEMS;  // block-relative position of item 0
+  const int64_t i0 = base + (int64_t)threadIdx.x * JS_ITEMS;
+  const bool vec = aligned && base + JS_BLOCK <= n;
   const KeyT sent = key_sentinel<KeyT>();
 
-  KeyT k[JS_ITEMS];
-  int is2[JS_ITEMS];
-  bool head[JS_ITEMS];
-  bool valid[JS_ITEMS];
+  // Per item, one bit each: run head, live side-1, live side-2.
+  unsigned headm = 0, w1m = 0, w2m = 0;
   {
-    const int64_t i0 = base + t0;
+    KeyT k[JS_ITEMS];
+    int32_t mp[JS_ITEMS];
+    load_items(keys, i0, n, vec, sent, k);
+    load_items(mpos, i0, n, vec, (int32_t)0, mp);
     KeyT prev = (i0 > 0 && i0 - 1 < n) ? keys[i0 - 1] : sent;
 #pragma unroll
     for (int q = 0; q < JS_ITEMS; ++q) {
-      const int64_t i = i0 + q;
-      valid[q] = i < n;
-      k[q] = valid[q] ? keys[i] : sent;
-      is2[q] = (valid[q] && mpos[i] >= cap1) ? 1 : 0;
-      head[q] = valid[q] && (i == 0 || k[q] != prev);
+      const bool valid = i0 + q < n;
+      const bool live = valid && k[q] != sent;
+      const bool s2 = mp[q] >= cap1;
+      if (valid && (i0 + q == 0 || k[q] != prev)) headm |= 1u << q;
+      if (live && !s2) w1m |= 1u << q;
+      if (live && s2) w2m |= 1u << q;
       prev = k[q];
     }
   }
 
-  // Block-relative side-2 count (inclusive) per item.
-  int tsum = 0;
-#pragma unroll
-  for (int q = 0; q < JS_ITEMS; ++q) tsum += is2[q];
-  int total2;
-  const int c2off = block_exclusive_scan(tsum, 0, Sum(), &total2);
-  int lc2[JS_ITEMS];
-  int th_rs = -1, th_hb = -1;
-  {
-    int c = c2off;
-#pragma unroll
-    for (int q = 0; q < JS_ITEMS; ++q) {
-      c += is2[q];
-      lc2[q] = c;
-      if (head[q]) {
-        th_rs = t0 + q;
-        th_hb = c - is2[q];
-      }
-    }
-  }
-  // Latest head at or before each item: its block position (rsl) and the
-  // block-relative side-2 count before it (lb2); -1 before the first head.
-  int last_rs, last_hb;
-  const int rs_off = block_exclusive_scan(th_rs, -1, Max(), &last_rs);
-  const int hb_off = block_exclusive_scan(th_hb, -1, Max(), &last_hb);
-  int rsl[JS_ITEMS], lb2[JS_ITEMS];
-  int pre1 = 0, pre2 = 0, rest_m = 0;
-  {
-    int r = rs_off, h = hb_off;
-#pragma unroll
-    for (int q = 0; q < JS_ITEMS; ++q) {
-      if (head[q]) {
-        r = t0 + q;
-        h = lc2[q] - is2[q];
-      }
-      rsl[q] = r;
-      lb2[q] = h;
-      if (!valid[q]) continue;
-      if (r < 0) {
-        // Before the first head: the predecessor's run continues here.
-        pre1 += 1 - is2[q];
-        pre2 += is2[q];
-      } else {
-        const int jr = t0 + q - r;
-        const int s2r = lc2[q] - h;
-        const int rank = is2[q] ? s2r - 1 : jr;
-        rest_m += (is2[q] && rank < jr + 1 - s2r && k[q] != sent) ? 1 : 0;
-      }
-    }
-  }
-  int a1, a2, mrest;
-  block_exclusive_scan(pre1, 0, Sum(), &a1);
-  block_exclusive_scan(pre2, 0, Sum(), &a2);
-  block_exclusive_scan(rest_m, 0, Sum(), &mrest);
+  // Scan 1: live counts before each thread (block-relative, both sides).
+  int total;
+  const int woff = block_exclusive_scan((__popc(w1m) << 16) | __popc(w2m), 0, Sum(), &total);
 
-  if (threadIdx.x == 0) {
-    int c2 = 0, base2 = 0, rs = 0, m2 = 0;
-    if (b > 0) {
-      const volatile int* prev = record(state, b - 1);
-      wait_ready(prev);
-      c2 = prev[1];
-      base2 = prev[2];
-      rs = prev[3];
-      m2 = prev[4];
+  // Scan 2: the live counts before the latest run head at or before each
+  // thread, -1 while there is none. Both halves grow from head to head, so
+  // the latest head's packed value is the maximum.
+  int th_hv = -1, th_first = -1;
+  {
+    int c = woff;
+#pragma unroll
+    for (int q = 0; q < JS_ITEMS; ++q) {
+      if (headm >> q & 1) {
+        th_hv = c;
+        if (th_first < 0) th_first = c;
+      }
+      c += ((w1m >> q & 1) << 16) | (w2m >> q & 1);
     }
-    // The open run has n1b side-1 and n2b side-2 elements before this
-    // block; its side-2 elements here (a2 of them) are matched while their
-    // run rank stays below the run's side-1 total n1b + a1.
-    const int n2b = c2 - base2;
-    const int n1b = (int)(base - rs) - n2b;
-    const int gap = n1b + a1 - n2b;
-    const bool live_pre = k[0] != sent;  // thread 0 holds the block's first element
-    const int pm = live_pre ? min(max(gap, 0), a2) : 0;
-    volatile int* mine = record(state, b);
-    mine[1] = c2 + total2;
-    mine[2] = last_rs >= 0 ? c2 + last_hb : base2;
-    mine[3] = last_rs >= 0 ? (int)base + last_rs : rs;
-    mine[4] = m2 + pm + mrest;
-    publish(mine);
-    s_carry[0] = c2;
-    s_carry[1] = base2;
-    s_carry[2] = rs;
-    s_carry[3] = m2;
+  }
+  int last_hv;
+  const int hoff = block_exclusive_scan(th_hv, -1, Max(), &last_hv);
+  if (hoff < 0 && th_first >= 0) s_first = th_first;  // one thread: the first head's
+
+  // Scan 3: side-2 matches among the elements at or after the block's first
+  // head; they do not depend on the carry. A side-2 element of run rank r
+  // is matched iff r is below the run's side-1 count so far.
+  unsigned matchm = 0;
+  {
+    int c = woff, h = hoff;
+#pragma unroll
+    for (int q = 0; q < JS_ITEMS; ++q) {
+      if (headm >> q & 1) h = c;
+      c += ((w1m >> q & 1) << 16) | (w2m >> q & 1);
+      if (h >= 0 && (w2m >> q & 1) && lo16(c) - lo16(h) - 1 < hi16(c) - hi16(h)) matchm |= 1u << q;
+    }
+  }
+  int mrest;
+  const int moff = block_exclusive_scan(__popc(matchm), 0, Sum(), &mrest);
+  // (the scan's barriers also make s_first visible to every thread)
+
+  if (threadIdx.x < 32) {
+    int4* recs = reinterpret_cast<int4*>(state + 4);
+    Summary own;
+    own.has_head = last_hv >= 0;
+    if (own.has_head) {
+      own.p1 = hi16(s_first);
+      own.p2 = lo16(s_first);
+      own.t1 = hi16(total) - hi16(last_hv);
+      own.t2 = lo16(total) - lo16(last_hv);
+      own.closed = mrest - min(own.t1, own.t2);
+    } else {
+      own.p1 = hi16(total);
+      own.p2 = lo16(total);
+      own.t1 = own.t2 = own.closed = 0;
+    }
+    Summary before = empty_summary();
+    if (b == 0) {
+      // Element 0 is a run head: the aggregate is the inclusive prefix.
+      if (threadIdx.x == 0) store_record16(recs, encode_prefix(own));
+    } else {
+      if (threadIdx.x == 0) store_record16(recs + b, encode_aggregate(own));
+      before = look_back_forward(recs, b);
+      if (threadIdx.x == 0) store_record16(recs + b, encode_prefix(combine(before, own)));
+    }
+    if (threadIdx.x == 0) {
+      // `before` starts at element 0, so it has a head and no leading counts.
+      s_carry[0] = before.t1;
+      s_carry[1] = before.t2;
+      s_carry[2] = before.closed + min(before.t1, before.t2);
+    }
   }
   __syncthreads();
-  const int in_c2 = s_carry[0], in_base2 = s_carry[1], in_rs = s_carry[2], in_m2 = s_carry[3];
+  // The open run has T1 side-1 and T2 side-2 live elements before this
+  // block, and M matches precede the block.
+  const int T1 = s_carry[0], T2 = s_carry[1], M = s_carry[2];
+  // Side-2 elements before the first head continue that run at rank T2,
+  // T2 + 1, ...: the first max(T1 + a1 - T2, 0) of them are matched, where
+  // a1 is the block's side-1 count before its first head.
+  const int lead = last_hv >= 0 ? s_first : total;
+  const int lead_matches = min(lo16(lead), max(T1 + hi16(lead) - T2, 0));
 
-  int matched[JS_ITEMS], rank[JS_ITEMS];
-  int msum = 0;
+  int32_t cv[JS_ITEMS], mv[JS_ITEMS];
+  {
+    int c = woff, h = hoff, post = moff;
 #pragma unroll
-  for (int q = 0; q < JS_ITEMS; ++q) {
-    const int i = (int)(base + t0 + q);
-    const int c2 = in_c2 + lc2[q];
-    const int rs = rsl[q] < 0 ? in_rs : (int)base + rsl[q];
-    const int b2 = rsl[q] < 0 ? in_base2 : in_c2 + lb2[q];
-    const int jr = i - rs;
-    const int s2r = c2 - b2;
-    rank[q] = is2[q] ? s2r - 1 : jr;
-    matched[q] = (valid[q] && is2[q] && rank[q] < jr + 1 - s2r && k[q] != sent) ? 1 : 0;
-    msum += matched[q];
-  }
-  int mtot;
-  int m = in_m2 + block_exclusive_scan(msum, 0, Sum(), &mtot);
-#pragma unroll
-  for (int q = 0; q < JS_ITEMS; ++q) {
-    if (!valid[q]) continue;
-    const int64_t i = base + t0 + q;
-    m += matched[q];
-    int c = (int)n;
-    if (matched[q]) {
-      c = m - 1;
-    } else if (!is2[q] && k[q] != sent) {
-      c = ~(m + rank[q]);
+    for (int q = 0; q < JS_ITEMS; ++q) {
+      if (headm >> q & 1) h = c;
+      c += ((w1m >> q & 1) << 16) | (w2m >> q & 1);
+      int r1, r2, pre;  // live counts of the run up to here; matches before the first head
+      if (h < 0) {
+        r1 = T1 + hi16(c);
+        r2 = T2 + lo16(c);
+        pre = min(lo16(c), max(r1 - T2, 0));
+      } else {
+        r1 = hi16(c) - hi16(h);
+        r2 = lo16(c) - lo16(h);
+        pre = lead_matches;
+      }
+      const bool matched = (w2m >> q & 1) && r2 - 1 < r1;
+      post += matchm >> q & 1;
+      const int m = M + pre + post;
+      int cd = (int)n;
+      if (matched) {
+        cd = m - 1;
+      } else if (w1m >> q & 1) {
+        cd = ~(m + r1 + r2 - 1);
+      }
+      cv[q] = cd;
+      mv[q] = m;
     }
-    cand[i] = c;
-    m2out[i] = m;
   }
+  store_items(cand, i0, n, vec, cv);
+  store_items(m2out, i0, n, vec, mv);
 }
 
 template <typename KeyT>
-__global__ void __launch_bounds__(JS_THREADS)
-join_scan_backward_kernel(const KeyT* keys, const int32_t* cand, const int32_t* m2, int64_t n,
-                          int nblocks, int32_t* dest, int32_t* num_out, int32_t* state) {
+__global__ void __launch_bounds__(JS_THREADS, JS_BLOCKS_PER_SM(JS_BACKWARD_THREADS_PER_SM))
+join_scan_backward_kernel(const KeyT* __restrict__ keys, const int32_t* __restrict__ cand,
+                          const int32_t* __restrict__ m2, int64_t n, int nblocks, int aligned,
+                          int32_t* __restrict__ dest, int32_t* __restrict__ num_out,
+                          int32_t* state) {
   __shared__ int s_ticket;
-  __shared__ int s_cin;
+  __shared__ int s_after;
   if (threadIdx.x == 0) s_ticket = atomicAdd(&state[0], 1);
   __syncthreads();
-  const int b = nblocks - 1 - s_ticket;  // tickets walk the blocks from the end
+  const int ticket = s_ticket;
+  const int b = nblocks - 1 - ticket;  // tickets walk the blocks from the end
   const int64_t base = (int64_t)b * JS_BLOCK;
-  // Thread t walks its items backward from block position JS_BLOCK-1-t*ITEMS.
-  const int64_t i0 = base + JS_BLOCK - 1 - threadIdx.x * JS_ITEMS;
+  // Thread 0 takes the block's last JS_ITEMS elements and walks them
+  // backward, so thread order is suffix order.
+  const int64_t i0 = base + (int64_t)(JS_THREADS - 1 - threadIdx.x) * JS_ITEMS;
+  const bool vec = aligned && base + JS_BLOCK <= n;
 
-  // Running minimum of m2cum over run tails at or after each item.
-  int sm[JS_ITEMS];
+  // Minimum of m2cum over the run tails at or after each item, in the thread.
+  int32_t sm[JS_ITEMS], c[JS_ITEMS];
   int run_min = INT_MAX;
   {
-    KeyT next = (i0 + 1 < n) ? keys[i0 + 1] : (KeyT)0;
+    KeyT k[JS_ITEMS];
+    int32_t m[JS_ITEMS];
+    load_items(keys, i0, n, vec, (KeyT)0, k);
+    load_items(m2, i0, n, vec, (int32_t)0, m);
+    load_items(cand, i0, n, vec, (int32_t)0, c);
+    KeyT next = i0 + JS_ITEMS < n ? keys[i0 + JS_ITEMS] : (KeyT)0;
 #pragma unroll
-    for (int q = 0; q < JS_ITEMS; ++q) {
-      const int64_t i = i0 - q;
-      const bool valid = i < n;
-      const KeyT kk = valid ? keys[i] : (KeyT)0;
-      if (valid && (i == n - 1 || kk != next)) run_min = min(run_min, (int)m2[i]);
+    for (int q = JS_ITEMS - 1; q >= 0; --q) {
+      const int64_t i = i0 + q;
+      if (i < n && (i == n - 1 || k[q] != next)) run_min = min(run_min, m[q]);
+      if (i == n - 1) *num_out = m[q];
       sm[q] = run_min;
-      next = kk;
+      next = k[q];
     }
   }
   int blk_min;
-  const int after = block_exclusive_scan(run_min, INT_MAX, Min(), &blk_min);
+  const int after_thread = block_exclusive_scan(run_min, INT_MAX, Min(), &blk_min);
 
-  if (threadIdx.x == 0) {
-    int cin = INT_MAX;
-    if (b < nblocks - 1) {
-      const volatile int* succ = record(state, b + 1);
-      wait_ready(succ);
-      cin = succ[1];
+  if (threadIdx.x < 32) {
+    unsigned long long* recs = reinterpret_cast<unsigned long long*>(state + 4);
+    int after = INT_MAX;
+    if (ticket == 0) {
+      if (threadIdx.x == 0) store_record8(recs, encode_min(ST_PREFIX, blk_min));
+    } else {
+      if (threadIdx.x == 0) store_record8(recs + ticket, encode_min(ST_AGGREGATE, blk_min));
+      after = look_back_backward(recs, ticket);
+      if (threadIdx.x == 0) store_record8(recs + ticket, encode_min(ST_PREFIX, min(blk_min, after)));
     }
-    volatile int* mine = record(state, b);
-    mine[1] = min(blk_min, cin);
-    publish(mine);
-    s_cin = cin;
+    if (threadIdx.x == 0) s_after = after;
   }
   __syncthreads();
-  const int cin = min(after, s_cin);
+  const int after = min(after_thread, s_after);
+
+  int32_t d[JS_ITEMS];
 #pragma unroll
   for (int q = 0; q < JS_ITEMS; ++q) {
-    const int64_t i = i0 - q;
-    if (i >= n) continue;
-    const int end_m2 = min(sm[q], cin);
-    const int c = cand[i];
-    dest[i] = c < 0 ? (~c < end_m2 ? ~c : (int)n) : c;
-    if (i == n - 1) *num_out = m2[i];
+    const int end_m2 = min(sm[q], after);
+    d[q] = c[q] < 0 ? (~c[q] < end_m2 ? ~c[q] : (int)n) : c[q];
   }
+  store_items(dest, i0, n, vec, d);
 }
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
 extern "C" int smj_join_scan_block_size() { return JS_BLOCK; }
 
-// state: zeroed int32 [8 + 8 * nblocks].
+// state: zeroed int32 [4 + 4 * nblocks]: the ticket counter in a 16-byte
+// header, then one 16-byte record per block.
 extern "C" int smj_join_scan_forward(const void* keys, int key_bytes, const void* mpos,
                                      int64_t n, int cap1, void* cand, void* m2, void* state,
                                      void* stream) {
@@ -333,19 +571,22 @@ extern "C" int smj_join_scan_forward(const void* keys, int key_bytes, const void
   int32_t* cd = static_cast<int32_t*>(cand);
   int32_t* mo = static_cast<int32_t*>(m2);
   int32_t* sp = static_cast<int32_t*>(state);
+  if (!aligned16(state)) return (int)cudaErrorMisalignedAddress;
+  const int aligned = aligned16(keys) && aligned16(mpos) && aligned16(cand) && aligned16(m2);
   if (key_bytes == 4) {
     join_scan_forward_kernel<int32_t><<<nblocks, JS_THREADS, 0, st>>>(
-        static_cast<const int32_t*>(keys), mp, n, cap1, cd, mo, sp);
+        static_cast<const int32_t*>(keys), mp, n, cap1, aligned, cd, mo, sp);
   } else if (key_bytes == 8) {
     join_scan_forward_kernel<int64_t><<<nblocks, JS_THREADS, 0, st>>>(
-        static_cast<const int64_t*>(keys), mp, n, cap1, cd, mo, sp);
+        static_cast<const int64_t*>(keys), mp, n, cap1, aligned, cd, mo, sp);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-// state: zeroed int32 [8 + 8 * nblocks], not the forward pass's.
+// state: zeroed int32 [4 + 2 * nblocks], not the forward pass's: the ticket
+// counter in a 16-byte header, then one 8-byte record per ticket.
 extern "C" int smj_join_scan_backward(const void* keys, int key_bytes, const void* cand,
                                       const void* m2, int64_t n, void* dest, void* num_out,
                                       void* state, void* stream) {
@@ -356,12 +597,14 @@ extern "C" int smj_join_scan_backward(const void* keys, int key_bytes, const voi
   int32_t* de = static_cast<int32_t*>(dest);
   int32_t* no = static_cast<int32_t*>(num_out);
   int32_t* sp = static_cast<int32_t*>(state);
+  if (!aligned16(state)) return (int)cudaErrorMisalignedAddress;
+  const int aligned = aligned16(keys) && aligned16(cand) && aligned16(m2) && aligned16(dest);
   if (key_bytes == 4) {
     join_scan_backward_kernel<int32_t><<<nblocks, JS_THREADS, 0, st>>>(
-        static_cast<const int32_t*>(keys), cd, mi, n, nblocks, de, no, sp);
+        static_cast<const int32_t*>(keys), cd, mi, n, nblocks, aligned, de, no, sp);
   } else if (key_bytes == 8) {
     join_scan_backward_kernel<int64_t><<<nblocks, JS_THREADS, 0, st>>>(
-        static_cast<const int64_t*>(keys), cd, mi, n, nblocks, de, no, sp);
+        static_cast<const int64_t*>(keys), cd, mi, n, nblocks, aligned, de, no, sp);
   } else {
     return (int)cudaErrorInvalidValue;
   }
