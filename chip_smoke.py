@@ -13,16 +13,20 @@ Phases, in order; any failure exits non-zero:
   2. build the kernels from `pim_sort_merge_join_tpu_torch/csrc/` (first use);
   3. every kernel against its plain torch version on the card, exactly:
      adversarial cases (each join-scan kernel against its own plain half
-     and the pair against the whole plain scan, with int64 and int32 keys),
+     and the pair against the whole plain scan, with int64 and int32 keys;
+     the bitonic network at every width from 2 to 2^21 and around its tile;
+     the row gather over widths, windows, block edges, live counts and two
+     tables in one call; the column gather over lengths and alignments),
      then the shapes the paths give them, timed with CUDA events (median of
-     3 after a warmup): the fused path's at 10M rows/table (each of its
-     three sorts as phase A, phase B and whole, beside stable `torch.sort`
-     of the key alone; the join scans over its 20M int32 keys and over the
-     1M wide-keys query's 2M int64 keys), the bitonic sort at its 2^21 cap,
-     and the radix tile sort at the merge sort's 20M elements, beside the
-     chunk sort. The radix sort then forms the runs of that
-     merge sort (run formation: radix runs + merge passes), which must
-     equal the `hbm_sort` result;
+     3 after a warmup): the fused path's at 10M rows/table (its merge and
+     un-merge sorts as phase A, phase B and whole, beside stable
+     `torch.sort` of the key alone; its emit sort with table 1's rows as
+     payload; the join scans over its 20M int32 keys and over the 1M
+     wide-keys query's 2M int64 keys), both gathers at the paths' shapes
+     beside `index_select`, the bitonic sort at its 2^21 cap, and the radix
+     tile sort at the merge sort's 20M elements, beside the chunk sort. The
+     radix sort then forms the runs of that merge sort (run formation:
+     radix runs + merge passes), which must equal the `hbm_sort` result;
   4. the query at 100k rows/table through `QueryPipeline.run_csv`: rows and
      CSV bytes equal the numpy oracle's;
   5. the fused query at 10M rows/table through `run_tables` (the main
@@ -37,10 +41,10 @@ after: exactly the kernels of that path must have run.
 Each kernel's record carries its time, its plain version's, the time of the
 one PyTorch call that computes the same function where there is one
 (`library_ms`; the port never calls it), and its bound: the larger of the
-bytes it must move (inputs read once, outputs written once) over 3.35 TB/s
-and its compares over 33.5e12/s (the H100's 67 TFLOP/s of float32 outside
-the tensor cores, one integer operation where a fused multiply-add counts
-two).
+bytes it must move (inputs read once, outputs written once; for a gather
+the rows that this run's live count has it read) over 3.35 TB/s and its
+compares over 33.5e12/s (the H100's 67 TFLOP/s of float32 outside the
+tensor cores, one integer operation where a fused multiply-add counts two).
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and the result JSON. Without a CUDA device, or without the
@@ -278,6 +282,138 @@ def bitonic_cases(rng):
     return cases
 
 
+def bitonic_width_cases(rng, log_tile: int):
+    """(name, keys, vals) of power-of-two length, for the network itself:
+    every width from 2 to 2^21, and at half a tile, a tile, two and four
+    tiles all keys equal, INT32 extremes with sentinel pairs, descending
+    input, and equal ``(key, val)`` pairs."""
+    extremes = np.array([I32MIN, I32MIN + 1, -1, 0, I32MAX - 1, I32MAX], np.int32)
+    cases = []
+    for m in range(1, 22):
+        n = 1 << m
+        cases.append((f"width_2^{m}", rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32),
+                      rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32)))
+    for m in (log_tile - 1, log_tile, log_tile + 1, log_tile + 2):
+        n = 1 << m
+        iota = np.arange(n, dtype=np.int32)
+        cases.append((f"all_equal_2^{m}", np.full(n, 7, np.int32), rng.permutation(n).astype(np.int32)))
+        k, v = rng.choice(extremes, n), rng.choice(extremes, n)
+        v[k == I32MAX] = I32MAX  # the padding pair of `sort_pairs`
+        cases.append((f"extremes_2^{m}", k, v))
+        cases.append((f"descending_2^{m}", iota[::-1].copy(), iota))
+        cases.append((f"equal_pairs_2^{m}", rng.integers(0, 3, n).astype(np.int32),
+                      rng.integers(0, 3, n).astype(np.int32)))
+    return cases
+
+
+def gather_rows_cases(rng):
+    """(name, parts [(src [n, w], idx int32, cols or None)], out width, m,
+    live or None): widths 1, 3, 4, 7 of int32 and int64, m != n with repeated
+    indices, m at a block's edge, outputs wider than the window, kept columns
+    that skip the key, an index shorter than the output, live counts of 0,
+    inside and past the output, two tables side by side in one call (a
+    join's output), the second index shorter and longer than the output, and
+    tables wider than one launch reads (their slices land at odd column
+    offsets, on misaligned rows)."""
+    cases = []
+    variant = 0
+    for dtype in (np.int32, np.int64):
+        info = np.iinfo(dtype)
+        for w in (1, 3, 4, 7):
+            for m in (255, 256, 257, 3001):
+                n = 1000 + w
+                src = rng.integers(info.min, info.max, (n, w)).astype(dtype)
+                idx = rng.integers(0, n, m).astype(np.int32)
+                cols = None if variant % 2 == 0 or w == 1 else list(range(1, w))
+                k = w if cols is None else len(cols)
+                out_w = k + (0, 3, 4)[variant % 3]
+                live = (None, 0, m // 3, m + 5)[variant % 4]
+                short = variant % 5 == 4  # the index ends before the output does
+                cases.append((f"{np.dtype(dtype).name}_w{w}_m{m}_v{variant}",
+                              [(src, idx[: m - 7] if short else idx, cols)], out_w, m, live))
+                variant += 1
+        for w1, w2, m, m2, live in ((4, 4, 1000, 1000, 400), (4, 4, 513, 300, None),
+                                    (3, 7, 257, 700, 256), (1, 2, 255, 255, None)):
+            t1 = rng.integers(info.min, info.max, (777, w1)).astype(dtype)
+            t2 = rng.integers(info.min, info.max, (555, w2)).astype(dtype)
+            parts = [(t1, rng.integers(0, 777, m).astype(np.int32), None),
+                     (t2, rng.integers(0, 555, m2).astype(np.int32), list(range(1, w2)))]
+            for pad in (0, 2):  # the windows make up the whole row, or leave columns
+                cases.append((f"{np.dtype(dtype).name}_pair_w{w1}_w{w2}_m{m}_pad{pad}", parts,
+                              w1 + w2 - 1 + pad, m, live))
+        # Rows of more than 64 bytes: one slice past the limit, several slices,
+        # kept columns out of order and across slices, beside a narrow table.
+        per = 64 // np.dtype(dtype).itemsize
+        for w, m, live in ((per + 1, 257, None), (2 * per + 3, 1000, 333), (3 * per, 256, None)):
+            wide = rng.integers(info.min, info.max, (600, w)).astype(dtype)
+            idx = rng.integers(0, 600, m).astype(np.int32)
+            mixed = [w - 1, 0, per, per - 1, 1, w - 2]
+            narrow = (rng.integers(info.min, info.max, (90, 3)).astype(dtype),
+                      rng.integers(0, 90, m).astype(np.int32), [2, 1])
+            name = f"{np.dtype(dtype).name}_wide_w{w}_m{m}"
+            cases.append((name, [(wide, idx, None)], w, m, live))
+            cases.append((name + "_skip_key", [(wide, idx, list(range(1, w)))], w + 1, m, live))
+            cases.append((name + "_mixed_cols", [(wide, idx, mixed)], len(mixed), m, live))
+            cases.append((name + "_after_narrow", [narrow, (wide, idx, mixed), narrow],
+                          len(mixed) + 4, m, live))
+    n = 5000
+    src = rng.integers(0, 2**40, (n, 4))
+    cases.append(("permutation_4xint64", [(src, rng.permutation(n).astype(np.int32), None)],
+                  4, n, None))
+    cases.append(("one_row_repeated", [(src, np.full(700, 3, np.int32), [0, 2])], 5, 700, 650))
+    return cases
+
+
+def column_gather_cases(rng):
+    """(name, perm uint32 as int32, operands): lengths 4q - 1, 4q and 4q + 1,
+    1, 3 and 8 columns of int32 and int64 mixed, and the same arrays offset
+    by one element (off the 16-byte alignment)."""
+    cases = []
+    for n in (1023, 1024, 1025, 3):
+        for ncols in (1, 3, 8):
+            perm = rng.integers(0, n, n).astype(np.int32)
+            ops = [rng.integers(-(2**31), 2**31, n).astype(np.int32) if c % 2 == 0
+                   else rng.integers(-(2**62), 2**62, n) for c in range(ncols)]
+            cases.append((f"n{n}_c{ncols}", perm, ops))
+    return cases
+
+
+def rows_err(case, device="cuda") -> int:
+    """Largest difference of `gather_rows` from its plain version on one case,
+    over the whole output, the columns past the window included."""
+    import torch
+
+    from pim_sort_merge_join_tpu_torch.ops.kernels import gather as gr
+
+    name, parts, out_w, m, live = case
+    parts_t = [(torch.from_numpy(src).to(device), torch.from_numpy(idx).to(device), cols)
+               for src, idx, cols in parts]
+    live_t = None if live is None else torch.tensor(live, dtype=torch.int32, device=device)
+    outs = []
+    for fn in (gr.gather_rows, gr.gather_rows_plain):
+        out = torch.full((m, out_w), -7, dtype=parts_t[0][0].dtype, device=device)
+        outs.append(fn(parts_t, out=out, live=live_t))
+    return max_abs_err(outs[:1], outs[1:])
+
+
+def column_gather_err(case, device="cuda") -> int:
+    """`hbm_sort.gather` against indexing, aligned and offset by one element."""
+    import torch
+
+    from pim_sort_merge_join_tpu_torch.ops.kernels import hbm_sort as hs
+
+    name, perm, ops = case
+    perm_t = torch.from_numpy(perm).to(device)
+    ops_t = tuple(torch.from_numpy(o).to(device) for o in ops)
+    err = max_abs_err(hs.gather(perm_t, ops_t), tuple(o[perm_t.long()] for o in ops_t))
+    if perm.shape[0] > 1:
+        # Slices that start one element in: contiguous, but misaligned.
+        p1 = perm_t.clone()[1:].copy_(torch.clamp(perm_t[1:] - 1, min=0))
+        o1 = tuple(o[1:] for o in ops_t)
+        err = max(err, max_abs_err(hs.gather(p1, o1), tuple(o[p1.long()] for o in o1)))
+    return err
+
+
 def radix_cases(rng):
     """(name, operands as int32 numpy arrays, tile, digit_bits, key_bits)."""
     cases = []
@@ -344,9 +480,29 @@ def phase_adversarial(rng) -> dict[str, int]:
     from pim_sort_merge_join_tpu_torch.ops.kernels import hbm_sort as hs
     from pim_sort_merge_join_tpu_torch.ops.kernels import radix_sort as rs
 
-    errs = {"sort": 0, "scan": 0, "scan_forward": 0, "scan_backward": 0, "bitonic": 0, "radix": 0}
+    errs = {"sort": 0, "scan": 0, "scan_forward": 0, "scan_backward": 0, "bitonic": 0, "radix": 0,
+            "gather_rows": 0, "gather": 0}
     sorts, scans = sort_cases(rng), scan_cases(rng)
     bitonics, radixes = bitonic_cases(rng), radix_cases(rng)
+    widths = bitonic_width_cases(rng, bs.LOG_TILE)
+    rows, columns = gather_rows_cases(rng), column_gather_cases(rng)
+    for case in rows:
+        err = rows_err(case)
+        check(err == 0, f"gather_rows case {case[0]}: kernel differs from plain (max err {err})")
+        errs["gather_rows"] = max(errs["gather_rows"], err)
+    for case in columns:
+        err = column_gather_err(case)
+        check(err == 0, f"column gather case {case[0]}: kernel differs from plain (max err {err})")
+        errs["gather"] = max(errs["gather"], err)
+    for name, keys, vals in widths:
+        k, v = torch.from_numpy(keys).cuda(), torch.from_numpy(vals).cuda()
+        want = bs.bitonic_sort_plain(k, v)
+        err = max(max_abs_err(bs.bitonic_sort_cuda(k, v), want),
+                  # Offset by one element: off the kernel's 16-byte alignment.
+                  max_abs_err(bs.bitonic_sort_cuda(torch.cat([k[:1], k])[1:],
+                                                   torch.cat([v[:1], v])[1:]), want))
+        check(err == 0, f"bitonic case {name}: kernel differs from plain (max err {err})")
+        errs["bitonic"] = max(errs["bitonic"], err)
     for name, arrays, num_keys in sorts:
         ops = tuple(torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays)
         err = max_abs_err(hs.hbm_sort(ops, num_keys), hs.hbm_sort_plain(ops, num_keys))
@@ -371,8 +527,9 @@ def phase_adversarial(rng) -> dict[str, int]:
         check(err == 0, f"radix case {name}: kernel differs from plain (max err {err})")
         errs["radix"] = max(errs["radix"], err)
     torch.cuda.synchronize()
-    log(f"adversarial: {len(sorts)} sort, {len(scans)} scan, {len(bitonics)} bitonic, "
-        f"{len(radixes)} radix cases equal")
+    log(f"adversarial: {len(sorts)} sort, {len(scans)} scan, {len(bitonics)} + {len(widths)} "
+        f"bitonic, {len(radixes)} radix, {len(rows)} row gather, {len(columns)} column gather "
+        f"cases equal")
     return errs
 
 
@@ -486,6 +643,7 @@ def phase_main_path_shapes(r1, r2, cfg) -> dict:
     from pim_sort_merge_join_tpu_torch.columnar.table import key_sentinel
     from pim_sort_merge_join_tpu_torch.ops import filter as filter_ops
     from pim_sort_merge_join_tpu_torch.ops.join import _narrow32
+    from pim_sort_merge_join_tpu_torch.ops.kernels import gather as gr
     from pim_sort_merge_join_tpu_torch.ops.kernels import hbm_sort as hs
     from pim_sort_merge_join_tpu_torch.ops.kernels import join_scan as js
 
@@ -523,31 +681,164 @@ def phase_main_path_shapes(r1, r2, cfg) -> dict:
     rec["num_out"] = int(num_out)
     time_scan(rec, "wide_", *wide_merged_keys())
 
-    # Un-merge sort: 2n, one unique int32 key and one payload (packed-32).
+    # Un-merge sort: 2n, one unique int32 key and one int32 payload. The
+    # path sorts it as two keys (`stable_key_sort`, unique_keys): pair-32,
+    # no gather.
     unmerge_ops = (mpos, dest)
-    _, dest_by_pos = hs.hbm_sort(unmerge_ops)
-    time_sort(rec, "unmerge_sort", unmerge_ops, 1)
+    _, dest_by_pos = hs.hbm_sort(unmerge_ops, 2)
+    check(max_abs_err((dest_by_pos,), hs.hbm_sort_plain(unmerge_ops, 1)[1:]) == 0,
+          "un-merge sort: two keys and one key disagree on a unique key")
+    time_sort(rec, "unmerge_sort", unmerge_ops, 2)
 
-    # Emit sort: n1 slots carrying the 4 int64 columns of table 1.
+    # Emit sort: n1 unique slots whose payload is table 1's rows (4 int64),
+    # written into the join's output with zeros from num_out on.
     d1 = dest_by_pos[:cap1]
     d1u = torch.where(d1 >= n, n + torch.arange(cap1, dtype=torch.int32, device="cuda"), d1)
-    cols = tuple(t1.data[:, c].contiguous() for c in range(t1.ncol))
-    time_sort(rec, "emit_sort", (d1u,) + cols, 1)
-    # The gather as the emit sort calls it: the permutation over the payloads.
+    width = t1.ncol + t2.ncol - 1
+
+    def emit_rows(sort_rows):
+        out = torch.empty((cap1, width), dtype=t1.dtype, device="cuda")
+        return sort_rows([(d1u, t1.data)], out=out, live=num_out)[:, : t1.ncol]
+
+    def plain_sort_rows(parts, **kw):
+        return gr.gather_rows_plain(
+            [(rows, hs.hbm_sort_plain((key, torch.arange(key.shape[0], dtype=torch.int32,
+                                                         device=key.device)))[1], *cols)
+             for key, rows, *cols in parts], **kw)
+
+    rec["emit_sort_err"] = max_abs_err((emit_rows(hs.hbm_sort_rows),), (emit_rows(plain_sort_rows),))
+    rec["emit_sort_ms"] = time_ms(lambda _: emit_rows(hs.hbm_sort_rows))
+    rec["emit_sort_plain_ms"] = time_ms(lambda _: emit_rows(plain_sort_rows))
+    rec["emit_sort_library_ms"] = time_ms(lambda _: torch.sort(d1u, stable=True))
+    live = int(num_out)
+    rec["emit_sort_bound_ms"] = bound(nbytes(d1u) + live * t1.ncol * 8 + cap1 * t1.ncol * 8)["bound_ms"]
     perm = hs.sort_elements(d1u, d1u, hs.KIND_PACKED32)[1]
-    perm64 = perm.long()
-    stacked = torch.stack(cols)
-    rec["gather_err"] = max_abs_err(hs.gather(perm, cols), tuple(o[perm64] for o in cols))
-    rec["gather"] = {"ms": time_ms(lambda _: hs.gather(perm, cols)),
-                     "plain_ms": time_ms(lambda _: tuple(o[perm64] for o in cols)),
-                     "library_ms": time_ms(lambda _: stacked.index_select(1, perm)),
-                     **bound(nbytes(perm) + 2 * nbytes(*cols))}
     torch.cuda.synchronize()
-    for key in ("merge_sort_err", "unmerge_sort_err", "emit_sort_err", "gather_err"):
+    for key in ("merge_sort_err", "unmerge_sort_err", "emit_sort_err"):
         check(rec[key] == 0, f"main-path shape {key} = {rec[key]}: kernel differs from plain")
     log("main-path shapes (ms, kernel vs plain vs library): " + json.dumps(rec))
-    del stacked, cols
+    rec.update(phase_gather_shapes(t1.data, t2.data, perm, num_out))
     rec.update(phase_run_formation(keys, pos))
+    return rec
+
+
+def emit_permutation(r1, r2, cfg):
+    """The fused 10M query up to its first emit sort, through the kernels:
+    ``(table 1's data, table 2's data, the emit sort's permutation,
+    num_out)``. For timing the gathers at that shape on their own."""
+    import torch
+
+    from pim_sort_merge_join_tpu_torch import Table
+    from pim_sort_merge_join_tpu_torch.columnar.table import key_sentinel
+    from pim_sort_merge_join_tpu_torch.ops import filter as filter_ops
+    from pim_sort_merge_join_tpu_torch.ops.join import _narrow32
+    from pim_sort_merge_join_tpu_torch.ops.kernels import hbm_sort as hs
+    from pim_sort_merge_join_tpu_torch.ops.kernels import join_scan as js
+
+    t1, t2 = Table.from_numpy(r1), Table.from_numpy(r2)
+    cap1, n = t1.capacity, t1.capacity + t2.capacity
+    sent = key_sentinel(t1.dtype)
+    k1 = torch.where(filter_ops.predicate_mask(t1, cfg.predicate1), t1.data[:, 0], sent)
+    k2 = torch.where(filter_ops.predicate_mask(t2, cfg.predicate2), t2.data[:, 0], sent)
+    pos = torch.arange(n, dtype=torch.int32, device="cuda")
+    mkeys, mpos = hs.hbm_sort((torch.cat([_narrow32(k1), _narrow32(k2)]), pos), 2)
+    dest, num_out = js.join_scan_cuda(mkeys, mpos, cap1)
+    d1 = hs.hbm_sort((mpos, dest))[1][:cap1]
+    d1u = torch.where(d1 >= n, n + torch.arange(cap1, dtype=torch.int32, device="cuda"), d1)
+    return t1.data, t2.data, hs.sort_elements(d1u, d1u, hs.KIND_PACKED32)[1], num_out
+
+
+def phase_gather_shapes(data1, data2, perm, num_out, rows: bool = True) -> dict:
+    """Both gathers at the paths' shapes, each against its plain version
+    (exact), with its bound and the one PyTorch call for the same function.
+
+    Rows (`gather_rows`): table 1's 4 int64 columns and table 2's 3 of 4,
+    each by a permutation, into the fused query's [10M, 7] output in one
+    launch, zeros from num_out on; table 1 alone into its window of that
+    output; whole rows by a permutation into a new table (the staged path's
+    table sort), of 4 and of 10 columns; and the staged inner join's emit, sorted row indices with
+    repeats, both tables with a live count and table 1 alone, all live.
+    Columns (`hbm_sort.gather`): 20M x 3 int32 (the inner join's un-merge
+    sort), 20M x 1 int32, 10M x 4 int32 and 10M x 4 int64 (the payloads of
+    the fused query's un-merge and emit sorts when they rode as columns).
+    ``rows=False`` times the column gather alone.
+    """
+    import torch
+
+    from pim_sort_merge_join_tpu_torch.ops.kernels import hbm_sort as hs
+
+    n, w = data1.shape
+    es = data1.element_size()
+    rec = {}
+
+    def column_shape(name, p, cols):
+        p64 = p.long()
+        stacked = torch.stack(cols)
+        err = max_abs_err(hs.gather(p, cols), tuple(o[p64] for o in cols))
+        check(err == 0, f"column gather {name}: kernel differs from plain ({err})")
+        rec[f"gather_{name}"] = {
+            "err": err, "ms": time_ms(lambda _: hs.gather(p, cols)),
+            "plain_ms": time_ms(lambda _: tuple(o[p64] for o in cols)),
+            "library_ms": time_ms(lambda _: stacked.index_select(1, p)),
+            **bound(nbytes(p) + 2 * nbytes(*cols))}
+
+    cols64 = tuple(data1[:, c].contiguous() for c in range(w))
+    cols32 = tuple(c.to(torch.int32) for c in cols64)
+    perm20 = torch.randperm(2 * n, device="cuda").to(torch.int32)
+    col20 = tuple(torch.randint(0, 2 * n, (2 * n,), dtype=torch.int32, device="cuda")
+                  for _ in range(3))
+    column_shape("20M_3xint32", perm20, col20)
+    column_shape("20M_1xint32", perm20, col20[:1])
+    column_shape("10M_4xint32", perm, cols32)
+    column_shape("10M_4xint64", perm, cols64)
+    del cols64, cols32, perm20, col20
+    if not rows:
+        log("gather shapes (ms, kernel vs plain vs library): " + json.dumps(rec))
+        return rec
+
+    from pim_sort_merge_join_tpu_torch.ops.kernels import gather as gr
+
+    def rows_shape(name, parts, width, live, rows_read, library):
+        def run(fn):
+            out = torch.zeros((parts[0][1].shape[0], width), dtype=data1.dtype, device="cuda")
+            return fn(parts, out=out, live=live)
+
+        m = parts[0][1].shape[0]
+        kept = sum(p[0].shape[1] if len(p) < 3 else len(p[2]) for p in parts)
+        # Read: of every live row an index and the kept columns of each table;
+        # written: every row of the window.
+        moved = rows_read * (4 * len(parts) + kept * es) + m * kept * es
+        err = max_abs_err((run(gr.gather_rows),), (run(gr.gather_rows_plain),))
+        check(err == 0, f"row gather {name}: kernel differs from plain ({err})")
+        out = torch.empty((m, width), dtype=data1.dtype, device="cuda")
+        rec[f"rows_{name}"] = {
+            "err": err,
+            "ms": time_ms(lambda _: gr.gather_rows(parts, out=out, live=live)),
+            "plain_ms": time_ms(lambda _: gr.gather_rows_plain(parts, out=out, live=live)),
+            "library_ms": None if library is None else time_ms(lambda _: library()),
+            **bound(moved)}
+
+    live = int(num_out)
+    keep2 = list(range(1, data2.shape[1]))
+    width = w + len(keep2)
+    perm2 = torch.randperm(data2.shape[0], device="cuda").to(torch.int32)
+    rows_shape("emit", [(data1, perm), (data2, perm2, keep2)], width, num_out, live, None)
+    rows_shape("emit_t1_window", [(data1, perm)], width, num_out, live,
+               lambda: data1.index_select(0, perm))
+    rows_shape("table_sort", [(data1, perm)], w, None, n, lambda: data1.index_select(0, perm))
+    # A table of 10 columns: rows of 80 bytes go as two column slices, one launch.
+    wide = torch.randint(0, 2**40, (n, 10), dtype=data1.dtype, device="cuda")
+    rows_shape("wide_table_sort", [(wide, perm)], 10, None, n, lambda: wide.index_select(0, perm))
+    del wide
+    # The staged inner join's emit: output slot j takes table-1 row src1[j]
+    # and table-2 row src2[j], both non-decreasing with repeats; about a
+    # third of the slots are live.
+    src1 = torch.sort(torch.randint(0, n, (n,), dtype=torch.int32, device="cuda")).values
+    src2 = torch.sort(torch.randint(0, n, (n,), dtype=torch.int32, device="cuda")).values
+    rows_shape("inner_emit", [(data1, src1), (data2, src2, keep2)], width, num_out, live, None)
+    rows_shape("inner_emit_t1_all_live", [(data1, src1)], w, None, n,
+               lambda: data1.index_select(0, src1))
+    log("gather shapes (ms, kernel vs plain vs library): " + json.dumps(rec))
     return rec
 
 
@@ -615,11 +906,13 @@ def phase_bitonic_shape(rng) -> dict:
     keys = torch.from_numpy(rng.integers(1, 3 * n, n).astype(np.int32)).cuda()
     keys[-n // 20:] = I32MAX  # the filtered-out tail of a compacted table
     vals = torch.arange(n, dtype=torch.int32, device="cuda")
-    rec = {"bitonic_width": bs._next_pow2(n)}
+    rec = {"bitonic_width": bs._next_pow2(n),
+           "bitonic_launches": len(bs.bitonic_schedule(bs._next_pow2(n)))}
     rec["bitonic_err"] = max_abs_err(bs.sort_pairs(keys, vals), plain_sort_pairs(keys, vals))
-    rec["bitonic_ms"] = time_ms(lambda _: bs.sort_pairs(keys, vals))
+    # Under half a millisecond: more repeats than the other phases take.
+    rec["bitonic_ms"] = time_ms(lambda _: bs.sort_pairs(keys, vals), reps=9)
     rec["bitonic_plain_ms"] = time_ms(lambda _: plain_sort_pairs(keys, vals))
-    rec["bitonic_library_ms"] = time_ms(lambda _: torch.sort(keys, stable=True))
+    rec["bitonic_library_ms"] = time_ms(lambda _: torch.sort(keys, stable=True), reps=9)
     width = rec["bitonic_width"]
     steps = width.bit_length() - 1
     rec["bitonic_bound"] = bound(4 * nbytes(keys), compares=width // 2 * steps * (steps + 1) // 2)
@@ -676,10 +969,14 @@ def host_ms(fn, reps: int = 3) -> float:
     return statistics.median(times)
 
 
-FUSED_KERNELS = {"hbm_sort_chunk", "hbm_sort_merge", "hbm_sort_gather",
+# The kernels each path must launch, and no other. The fused query with
+# narrow keys needs no column gather: its merge and un-merge sorts carry
+# both operands in the element, and its emit sorts move rows.
+FUSED_KERNELS = {"hbm_sort_chunk", "hbm_sort_merge", "gather_rows",
                  "join_scan_forward", "join_scan_backward"}
-STAGED_KERNELS = {"hbm_sort_chunk", "hbm_sort_merge", "hbm_sort_gather"}
-STAGED_BITONIC_KERNELS = STAGED_KERNELS | {"bitonic_local", "bitonic_global"}
+FUSED_WIDE_KERNELS = FUSED_KERNELS | {"hbm_sort_gather"}
+STAGED_KERNELS = {"hbm_sort_chunk", "hbm_sort_merge", "hbm_sort_gather", "gather_rows"}
+STAGED_BITONIC_KERNELS = STAGED_KERNELS | {"bitonic_local", "bitonic_strided"}
 
 
 def staged_inputs(n: int, sort_algorithm: str):
@@ -814,9 +1111,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     w1, w2, wcfg = slice_inputs(1_000_000, key_offset=2**40)
     phase_slice(w1, w2, wcfg, expect_narrow=False, label="1M wide keys",
-                kernels_of_path=FUSED_KERNELS)
+                kernels_of_path=FUSED_WIDE_KERNELS)
     a1, a2, acfg = staged_inputs(10_000_000, "auto")
-    _, msa, rowsa = phase_slice(a1, a2, acfg, expect_narrow=True, label="staged inner 10M",
+    launches_a, msa, rowsa = phase_slice(a1, a2, acfg, expect_narrow=True, label="staged inner 10M",
                                 kernels_of_path=STAGED_KERNELS)
     del a1, a2
     torch.cuda.empty_cache()
@@ -827,8 +1124,7 @@ def main() -> int:
 
     src = "pim_sort_merge_join_tpu_torch/csrc/"
     ref = "pim_sort_merge_join_tpu/ops/pallas/"
-    sort_err = max(errs["sort"], shapes["merge_sort_err"], shapes["unmerge_sort_err"],
-                   shapes["emit_sort_err"])
+    sort_err = max(errs["sort"], shapes["merge_sort_err"], shapes["unmerge_sort_err"])
     pair_err = max(errs["scan"], shapes["scan_err"], shapes["wide_scan_err"])
     forward_err = max(pair_err, errs["scan_forward"], shapes["forward_err"],
                       shapes["wide_forward_err"])
@@ -841,7 +1137,17 @@ def main() -> int:
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_rec["bound_ms"],
                 "bound_by": bound_rec["bound_by"], "library_ms": library_ms}
 
-    chunk, merge, gather = shapes["chunk"], shapes["merge"], shapes["gather"]
+    chunk, merge = shapes["chunk"], shapes["merge"]
+    # The column gather at the inner join's un-merge sort (staged A launches
+    # it; the fused query with narrow keys needs none). The row gather at the
+    # staged path's table sort, whole rows by a permutation, where one
+    # PyTorch call computes the same (`index_select`); its two-table shapes
+    # (`rows_emit`, `rows_inner_emit`), which no single call computes, are in
+    # the "gather shapes" line.
+    gather, rows = shapes["gather_20M_3xint32"], shapes["rows_table_sort"]
+    gather_err = max(errs["gather"], *(v["err"] for k, v in shapes.items() if k.startswith("gather_")))
+    rows_err_ = max(errs["gather_rows"], shapes["emit_sort_err"],
+                    *(v["err"] for k, v in shapes.items() if k.startswith("rows_")))
     kernels = [
         entry("hbm_sort_chunk", "hbm_sort.cu", "hbm_sort.py:286", launches["hbm_sort_chunk"],
               sort_err, chunk["ms"], shapes["merge_sort_plain_ms"], chunk),
@@ -849,9 +1155,11 @@ def main() -> int:
         # same run-sorted elements.
         entry("hbm_sort_merge", "hbm_sort.cu", "hbm_sort.py:463", launches["hbm_sort_merge"],
               sort_err, merge["ms"], shapes["merge_sort_plain_ms"], merge, merge["library_ms"]),
-        entry("hbm_sort_gather", "hbm_sort.cu", "hbm_sort.py:670", launches["hbm_sort_gather"],
-              max(sort_err, shapes["gather_err"]), gather["ms"], gather["plain_ms"], gather,
+        entry("hbm_sort_gather", "hbm_sort.cu", "hbm_sort.py:670", launches_a["hbm_sort_gather"],
+              max(sort_err, gather_err), gather["ms"], gather["plain_ms"], gather,
               gather["library_ms"]),
+        entry("gather_rows", "gather.cu", "hbm_sort.py:670", launches["gather_rows"],
+              rows_err_, rows["ms"], rows["plain_ms"], rows, rows["library_ms"]),
         entry("join_scan_forward", "join_scan.cu", "join_scan.py:137",
               launches["join_scan_forward"], forward_err, shapes["forward_ms"],
               shapes["forward_plain_ms"], shapes["forward_bound"]),
@@ -859,7 +1167,7 @@ def main() -> int:
               launches["join_scan_backward"], backward_err, shapes["backward_ms"],
               shapes["backward_plain_ms"], shapes["backward_bound"]),
         entry("bitonic_sort", "bitonic_sort.cu", "sort_kernel.py:138",
-              launches_b["bitonic_local"] + launches_b["bitonic_global"],
+              launches_b["bitonic_local"] + launches_b["bitonic_strided"],
               max(errs["bitonic"], bitonic["bitonic_err"]), bitonic["bitonic_ms"],
               bitonic["bitonic_plain_ms"], bitonic["bitonic_bound"],
               bitonic["bitonic_library_ms"]),

@@ -52,8 +52,9 @@
 //     gathers only its payloads.
 //   - Shared-memory slots are padded by one per 16, which keeps a thread's
 //     16 consecutive elements off its neighbours' banks.
-// The gather reads at random once. Times at the paths' shapes are in
-// PERF.md.
+// The gather of operands that share no row reads at random once, one
+// column per launch (gather_kernel below); a table's rows go through
+// csrc/gather.cu. Times at the paths' shapes are in PERF.md.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -79,7 +80,6 @@
 #define SMJ_RUN (SMJ_RUN_THREADS * SMJ_ITEMS)
 #define SMJ_TILE (SMJ_TILE_THREADS * SMJ_ITEMS)
 #define SMJ_GATHER_THREADS 256
-#define SMJ_GATHER_MAX_COLS 8
 
 namespace {
 
@@ -386,37 +386,43 @@ merge_kernel(const uint64_t* __restrict__ keys, const uint32_t* __restrict__ idx
   }
 }
 
-struct GatherArgs {
-  const void* src[SMJ_GATHER_MAX_COLS];
-  void* dst[SMJ_GATHER_MAX_COLS];
-  int size[SMJ_GATHER_MAX_COLS];
-  int ncols;
+// Four values of T moved by the widest access their size allows, 16 bytes
+// at most.
+template <typename T>
+struct alignas(sizeof(T) * 4 < 16 ? sizeof(T) * 4 : 16) Vec4 {
+  T v[4];
 };
 
-// out[c][i] = in[c][perm[i]] for every column c (int32 or int64). Every
-// column's random read starts before the first store, so a thread has
-// them all in flight at once.
-__global__ void gather_kernel(GatherArgs a, const uint32_t* __restrict__ perm, int64_t n) {
+// out[i] = in[perm[i]] for one column, an operand that shares no row with
+// the others. What bounds it is the rate of random 32-byte sectors, one per
+// value read, and that rate falls when one launch reads several arrays at
+// random at once: on an H100, at 20M x 3 int32, one launch for all three
+// columns takes 1.92 ms and three launches 1.56 (PERF.md). So a launch moves
+// one column.
+// A thread takes four consecutive outputs: one vector load brings their
+// indices, the four random reads start before the store, and the values
+// leave in one vector store. Against one output per thread that is the same
+// time on a random permutation and 0.39 ms against 0.45 at 10M x 4 int32 on
+// the join's own permutations, whose neighbours often share a sector
+// (PERF.md). `vec` says that perm and out are 16-byte aligned; without it,
+// and in the last partial group, the accesses are scalar and guarded.
+template <typename T>
+__global__ void __launch_bounds__(SMJ_GATHER_THREADS)
+gather_kernel(const T* __restrict__ in, T* __restrict__ out, const uint32_t* __restrict__ perm,
+              int64_t n, int vec) {
+  const int64_t groups = (n + 3) / 4;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    const int64_t j = perm[i];
-    int64_t v[SMJ_GATHER_MAX_COLS];
+  for (int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; g < groups; g += stride) {
+    const int64_t i0 = g * 4;
+    const int cnt = n - i0 < 4 ? (int)(n - i0) : 4;
+    if (vec != 0 && cnt == 4) {
+      const Vec4<uint32_t> j = *reinterpret_cast<const Vec4<uint32_t>*>(perm + i0);
+      Vec4<T> v;
 #pragma unroll
-    for (int c = 0; c < SMJ_GATHER_MAX_COLS; ++c) {
-      if (c < a.ncols) {
-        v[c] = a.size[c] == 8 ? static_cast<const int64_t*>(a.src[c])[j]
-                              : (int64_t) static_cast<const int32_t*>(a.src[c])[j];
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < SMJ_GATHER_MAX_COLS; ++c) {
-      if (c < a.ncols) {
-        if (a.size[c] == 8) {
-          static_cast<int64_t*>(a.dst[c])[i] = v[c];
-        } else {
-          static_cast<int32_t*>(a.dst[c])[i] = (int32_t)v[c];
-        }
-      }
+      for (int t = 0; t < 4; ++t) v.v[t] = in[j.v[t]];
+      *reinterpret_cast<Vec4<T>*>(out + i0) = v;
+    } else {
+      for (int t = 0; t < cnt; ++t) out[i0 + t] = in[perm[i0 + t]];
     }
   }
 }
@@ -512,21 +518,23 @@ extern "C" int smj_merge_pass_final(const void* keys, const void* idx, int wide,
                                         out1, low_is_key ? BIAS32 : 0u, st);
 }
 
-// Applies the permutation to up to SMJ_GATHER_MAX_COLS columns.
-extern "C" int smj_gather(const void* const* srcs, void* const* dsts, const int* sizes,
-                          int ncols, const void* perm, int64_t n, void* stream) {
-  if (ncols < 1 || ncols > SMJ_GATHER_MAX_COLS) return (int)cudaErrorInvalidValue;
-  GatherArgs a;
-  for (int c = 0; c < ncols; ++c) {
-    a.src[c] = srcs[c];
-    a.dst[c] = dsts[c];
-    a.size[c] = sizes[c];
-  }
-  a.ncols = ncols;
-  int64_t blocks = (n + SMJ_GATHER_THREADS - 1) / SMJ_GATHER_THREADS;
+// out[i] = in[perm[i]] for i < n: one column of elem_bytes (4 or 8) per
+// element, perm uint32.
+extern "C" int smj_gather(const void* in, void* out, int elem_bytes, const void* perm, int64_t n,
+                          void* stream) {
+  if ((elem_bytes != 4 && elem_bytes != 8) || n < 1) return (int)cudaErrorInvalidValue;
+  const int vec = reinterpret_cast<uintptr_t>(perm) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  int64_t blocks = ((n + 3) / 4 + SMJ_GATHER_THREADS - 1) / SMJ_GATHER_THREADS;
   if (blocks > (1 << 16)) blocks = 1 << 16;
-  if (blocks < 1) blocks = 1;
-  gather_kernel<<<(unsigned)blocks, SMJ_GATHER_THREADS, 0, (cudaStream_t)stream>>>(
-      a, static_cast<const uint32_t*>(perm), n);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const uint32_t* p = static_cast<const uint32_t*>(perm);
+  if (elem_bytes == 8) {
+    gather_kernel<int64_t><<<(unsigned)blocks, SMJ_GATHER_THREADS, 0, st>>>(
+        static_cast<const int64_t*>(in), static_cast<int64_t*>(out), p, n, vec);
+  } else {
+    gather_kernel<int32_t><<<(unsigned)blocks, SMJ_GATHER_THREADS, 0, st>>>(
+        static_cast<const int32_t*>(in), static_cast<int32_t*>(out), p, n, vec);
+  }
   return (int)cudaGetLastError();
 }

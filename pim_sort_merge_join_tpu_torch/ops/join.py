@@ -8,15 +8,17 @@ per table that places each row at its slot. Output rows, their order and `num_ro
 the JAX package's exactly (1:1 semantics of join.c:160-173: the k-th
 duplicate of a key in table 1 pairs with the k-th duplicate in table 2).
 
-On CUDA tensors the four sorts run the hand-written `hbm_sort` kernels and
-the scan runs the `join_scan` kernels (`ops/kernels/`); on CPU tensors
-their plain torch versions run.
+On CUDA tensors the four sorts run the hand-written `hbm_sort` kernels,
+the scan runs the `join_scan` kernels and the rows move through the
+`gather_rows` kernel (`ops/kernels/`); on CPU tensors their plain torch
+versions run.
 
 The inner join (`merge_join_inner`, the staged path's): the standard SQL
 cross product on duplicate keys, over two tables already sorted on their
 keys. `_match_info_keys` finds each table-1 row's matches in the merged
 key domain (one merge sort, run algebra, one un-merge sort, both through
-`stable_key_sort`), and `_emit` gathers the output rows.
+`stable_key_sort`), and `_emit` gathers both tables' rows into the output
+in one row gather.
 
 Output schema: table-1 columns, then table-2 columns without its key.
 """
@@ -29,12 +31,22 @@ import torch
 
 from pim_sort_merge_join_tpu_torch.columnar.table import Table, key_sentinel
 from pim_sort_merge_join_tpu_torch.ops.kernels import join_scan
-from pim_sort_merge_join_tpu_torch.ops.sort import stable_key_sort
+from pim_sort_merge_join_tpu_torch.ops.kernels.gather import gather_rows
+from pim_sort_merge_join_tpu_torch.ops.sort import stable_key_sort, stable_key_sort_rows
 
 
 def _out_names(t1: Table, t2: Table, key2: int) -> tuple:
     ncol = t1.ncol + t2.ncol - 1
     return tuple(f"col{i + 1}" for i in range(ncol))
+
+
+def _out_buffer(t1: Table, t2: Table, key2: int, rows: int):
+    """The join's output buffer, not yet written, and each table's data in
+    its element type: ``(out, data1, data2, keep2)``."""
+    dtype = torch.promote_types(t1.dtype, t2.dtype)
+    out = torch.empty((rows, t1.ncol + t2.ncol - 1), dtype=dtype, device=t1.device)
+    keep2 = [c for c in range(t2.ncol) if c != key2]
+    return out, t1.data.to(dtype).contiguous(), t2.data.to(dtype).contiguous(), keep2
 
 
 def _emit(
@@ -43,22 +55,19 @@ def _emit(
     key2: int,
     src1: torch.Tensor,
     src2: torch.Tensor,
-    valid_out: torch.Tensor,
     num_out: torch.Tensor,
 ) -> Table:
     """Gather matched row pairs into the concatenated output table.
 
     ``src1[j]``/``src2[j]`` give the table-1/table-2 row feeding output row
-    ``j``; ``valid_out`` masks the live output slots (front-compacted).
+    ``j``. The first ``min(num_out, len(src1))`` slots are live
+    (front-compacted); the others hold zeros, and their sources are not
+    read. One row gather writes both tables' columns of the output.
     """
-    safe1 = torch.where(valid_out, src1, 0)
-    safe2 = torch.where(valid_out, src2, 0)
-    part1 = t1.data.index_select(0, safe1)
-    keep2 = [c for c in range(t2.ncol) if c != key2]
-    part2 = t2.data[:, keep2].index_select(0, safe2)
-    data = torch.cat([part1, part2], dim=1)
-    data = torch.where(valid_out[:, None], data, 0)
-    return Table(data=data, num_rows=num_out.to(torch.int32), names=_out_names(t1, t2, key2))
+    data, data1, data2, keep2 = _out_buffer(t1, t2, key2, src1.shape[0])
+    live = num_out.to(torch.int32)
+    gather_rows([(data1, src1), (data2, src2, keep2)], out=data, live=live)
+    return Table(data=data, num_rows=live, names=_out_names(t1, t2, key2))
 
 
 class _MatchInfo(NamedTuple):
@@ -234,39 +243,21 @@ def _one_to_one_merged(
 
     # --- 3. emit: permute each table's rows to their output slots ----------
     # Dropped rows (dest = n) are uniquified with their row index so both
-    # emit sorts have unique keys; their contents are zeroed below.
-    # narrow_data (resolved by the pipeline: every table value fits int32):
-    # payload columns ride the emit sorts as int32 and are cast back after.
-    def _plane(col: torch.Tensor) -> torch.Tensor:
-        if narrow_data is True and col.dtype == torch.int64:
-            return col.to(torch.int32)
-        return col.contiguous()
-
+    # emit sorts have unique keys; their slots lie past num_out, where the
+    # row gather writes zeros. Each sort's payload is its table's rows,
+    # written into that table's columns of the output (table 2 without its
+    # key) by one gather for both. The rows move once, in the table's own element type, so
+    # ``narrow_data`` has nothing left to narrow here: it is only ever
+    # resolved on when every value fits int32, where the result is the same.
     def _uniq(d: torch.Tensor, cap: int) -> torch.Tensor:
         iota = torch.arange(cap, dtype=torch.int32, device=dev)
         return torch.where(d >= n, n + iota, d)
 
-    ops1 = stable_key_sort(
-        (_uniq(dest1, cap1),) + tuple(_plane(t1.data[:, c]) for c in range(t1.ncol)),
-        algorithm=sort_algorithm,
-        unique_keys=True,
+    data, data1, data2, keep2 = _out_buffer(t1, t2, key2, cap1)
+    stable_key_sort_rows(
+        [(_uniq(dest1, cap1), data1), (_uniq(dest2, cap2), data2, keep2)],
+        algorithm=sort_algorithm, out=data, live=num_out,
     )
-    part1 = torch.stack(ops1[1:], dim=1).to(t1.dtype)[:cap1]
-    keep2 = [c for c in range(t2.ncol) if c != key2]
-    ops2 = stable_key_sort(
-        (_uniq(dest2, cap2),) + tuple(_plane(t2.data[:, c]) for c in keep2),
-        algorithm=sort_algorithm,
-        unique_keys=True,
-    )
-    part2_full = torch.stack(ops2[1:], dim=1).to(t2.dtype)
-    if cap2 >= cap1:
-        part2 = part2_full[:cap1]
-    else:
-        pad = part2_full.new_zeros((cap1 - cap2, t2.ncol - 1))
-        part2 = torch.cat([part2_full, pad], dim=0)
-    valid_out = torch.arange(cap1, dtype=torch.int32, device=dev) < num_out
-    data = torch.cat([part1, part2], dim=1)
-    data = torch.where(valid_out[:, None], data, 0)
     return Table(data=data, num_rows=num_out, names=_out_names(t1, t2, key2))
 
 
@@ -352,9 +343,8 @@ def merge_join_inner(
     src1 = broadcast(i1)
     start_of = broadcast(starts)
     src2 = info.lo2[src1.long()] + (j - start_of)
-    valid_out = j < torch.clamp(total, max=out_cap)
     # Slots past `total` hold the last row's values, but they are invalid.
-    return _emit(t1, t2, key2, src1, src2, valid_out, total)
+    return _emit(t1, t2, key2, src1, src2, total)
 
 
 def merge_join(

@@ -1,8 +1,16 @@
 """Hand-written CUDA kernels of the port, with their plain versions."""
 
-from pim_sort_merge_join_tpu_torch.ops.kernels import bitonic_sort, hbm_sort, join_scan, radix_sort
+from pim_sort_merge_join_tpu_torch.ops.kernels import (
+    bitonic_sort,
+    gather,
+    hbm_sort,
+    join_scan,
+    radix_sort,
+)
 
-_COUNTERS = (hbm_sort.LAUNCHES, join_scan.LAUNCHES, bitonic_sort.LAUNCHES, radix_sort.LAUNCHES)
+_COUNTERS = (
+    hbm_sort.LAUNCHES, gather.LAUNCHES, join_scan.LAUNCHES, bitonic_sort.LAUNCHES, radix_sort.LAUNCHES,
+)
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,8 +1,9 @@
 """Build the CUDA kernels at first use and load them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled by one ``nvcc`` call into one shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds). The library's file name carries a hash of the sources and flags,
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` call, all started
+together, and the objects are linked into one shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds). The library's
+file name carries a hash of the sources and flags,
 so a stale build is never loaded; it is written under a temporary name and
 moved into place, so concurrent builders never see a partial file.
 """
@@ -14,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
@@ -25,7 +27,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+)  # for one source straight into a library; `build` compiles with -c and links
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -61,13 +63,22 @@ def build() -> Path:
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        objects = [os.path.join(objdir, src.stem + ".o") for src in sources()]
+        cmds = [[_nvcc(), *compile_flags, "-c", "-o", obj, str(src)]
+                for src, obj in zip(sources(), objects)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for cmd in cmds]
+        results = [(cmd, proc.communicate(), proc.returncode) for cmd, proc in zip(cmds, procs)]
+        link = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *objects]
+        if all(rc == 0 for _, _, rc in results):
+            linked = subprocess.run(link, capture_output=True, text=True)
+            results.append((link, (linked.stdout, linked.stderr), linked.returncode))
+    for cmd, (_, stderr), rc in results:
+        if rc != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{stderr}")
     os.replace(tmp, path)
     return path
 

@@ -20,6 +20,11 @@ operands' types:
   sort of the first), or two int32 keys with payloads. The last pass writes
   the permutation and the gather applies it to every operand.
 
+Operands that share no row go through the column gather (`gather`). A sort
+whose payload is the rows of a table is `hbm_sort_rows`: kernels 1 and 2 on
+the key, then one row gather (`ops/kernels/gather.py`), which reads each
+row once and not once per column.
+
 Signed keys are biased to unsigned order (``x ^ sign bit``). Any other
 combination raises on CUDA tensors (ROADMAP: "Float keys and general
 num_keys=2 on CUDA"). What the element looks like and how many passes a
@@ -34,12 +39,12 @@ import ctypes
 import torch
 
 from pim_sort_merge_join_tpu_torch.ops.kernels import build
+from pim_sort_merge_join_tpu_torch.ops.kernels.gather import gather_rows
 
 KIND_PACKED32, KIND_PAIR32, KIND_WIDE_I64, KIND_WIDE_PAIR = 0, 1, 2, 3
 WIDE_KINDS = (KIND_WIDE_I64, KIND_WIDE_PAIR)
 RUN = 8192  # SMJ_RUN in csrc/hbm_sort.cu: elements per phase-A run
 TILE = 4096  # SMJ_TILE: outputs of one merge block
-GATHER_MAX_COLS = 8  # SMJ_GATHER_MAX_COLS
 
 # Kernel launches by this module's wrappers, for showing which path ran.
 LAUNCHES = {"hbm_sort_chunk": 0, "hbm_sort_merge": 0, "hbm_sort_gather": 0}
@@ -59,7 +64,7 @@ def _fn(name: str):
             "smj_chunk_sort": [_P, _P, _INT, _I64, _P, _P, _P],
             "smj_merge_pass": [_P, _P, _P, _P, _INT, _I64, _I64, _P],
             "smj_merge_pass_final": [_P, _P, _INT, _I64, _I64, _I64, _P, _P, _INT, _P],
-            "smj_gather": [_P, _P, _P, _INT, _P, _I64, _P],
+            "smj_gather": [_P, _P, _INT, _P, _I64, _P],
         }[name]
         if not _fns:
             sizes = tuple(
@@ -236,7 +241,9 @@ def sort_elements(k0: torch.Tensor, k1: torch.Tensor, kind: int):
 
 
 def gather(perm: torch.Tensor, operands: tuple[torch.Tensor, ...]) -> tuple[torch.Tensor, ...]:
-    """``out[i] = op[perm[i]]`` for every operand, in one launch per 8 columns."""
+    """``out[i] = op[perm[i]]`` for every operand, one launch per operand:
+    reading several arrays at random in one launch is slower than one after
+    the other (`csrc/hbm_sort.cu`, `gather_kernel`)."""
     build.require_cuda("hbm_sort gather", perm, *operands)
     for op in operands:
         if op.dtype not in (torch.int32, torch.int64) or op.shape != perm.shape:
@@ -245,16 +252,12 @@ def gather(perm: torch.Tensor, operands: tuple[torch.Tensor, ...]) -> tuple[torc
                 f"{tuple(perm.shape)}, got {op.dtype} {tuple(op.shape)}"
             )
     outs = tuple(torch.empty_like(op) for op in operands)
-    n = perm.shape[0]
-    for lo in range(0, len(operands), GATHER_MAX_COLS):
-        group = range(lo, min(lo + GATHER_MAX_COLS, len(operands)))
-        k = len(group)
-        srcs = (ctypes.c_void_p * k)(*(operands[c].data_ptr() for c in group))
-        dsts = (ctypes.c_void_p * k)(*(outs[c].data_ptr() for c in group))
-        sizes = (ctypes.c_int * k)(*(operands[c].element_size() for c in group))
+    if perm.shape[0] == 0:
+        return outs
+    for op, out in zip(operands, outs):
         err = _fn("smj_gather")(
-            ctypes.cast(srcs, _P), ctypes.cast(dsts, _P), ctypes.cast(sizes, _P),
-            k, perm.data_ptr(), n, build.stream_ptr(perm),
+            op.data_ptr(), out.data_ptr(), op.element_size(), perm.data_ptr(), perm.shape[0],
+            build.stream_ptr(perm),
         )
         build.check(err, "hbm_sort gather")
         LAUNCHES["hbm_sort_gather"] += 1
@@ -289,3 +292,40 @@ def hbm_sort(
     if kind == KIND_PACKED32:
         return (first,) + (gather(second, operands[1:]) if len(operands) > 1 else ())
     return gather(second, operands)
+
+
+def sort_permutation(key: torch.Tensor) -> torch.Tensor:
+    """The stable sorting permutation of a 1D int32/int64 ``key``, int32:
+    kernels 1 and 2 on a CUDA tensor, `hbm_sort_plain` on a CPU tensor."""
+    n = key.shape[0]
+    if key.shape != (n,):
+        raise ValueError(f"hbm_sort: a 1D key, got {tuple(key.shape)}")
+    if key.device.type == "cpu":
+        return hbm_sort_plain((key, torch.arange(n, dtype=torch.int32)))[1]
+    if key.device.type != "cuda":
+        raise ValueError(f"hbm_sort: unsupported device {key.device}")
+    kind = element_kind((key,), 1)
+    if n == 0:
+        return torch.empty(0, dtype=torch.int32, device=key.device)
+    return sort_elements(key, key, kind)[1]
+
+
+def hbm_sort_rows(parts, *, out=None, live=None) -> torch.Tensor:
+    """Tables' rows in the stable order of their keys, side by side.
+
+    ``parts`` holds ``(key, rows, cols)`` tuples: a 1D int32/int64 key,
+    a row-major table of as many rows and its kept columns (all if None).
+    Returns ``out`` with ``out[i, c + q] = rows[perm[i], cols[q]]`` for each
+    part, ``perm`` the stable sorting permutation of its key and ``c`` its
+    window's first column; ``out`` and ``live`` are `gather_rows`'s. CUDA tensors run kernels 1 and 2 on each key and one row
+    gather for all parts; CPU tensors the plain versions.
+    """
+    gathers = []
+    for key, rows, *cols in parts:
+        if rows.dim() != 2 or rows.shape[0] != key.shape[0] or rows.device != key.device:
+            raise ValueError(
+                f"hbm_sort_rows: a key and a table of as many rows on one device, got "
+                f"{tuple(key.shape)} on {key.device} and {tuple(rows.shape)} on {rows.device}"
+            )
+        gathers.append((rows, sort_permutation(key), *cols))
+    return gather_rows(gathers, out=out, live=live)

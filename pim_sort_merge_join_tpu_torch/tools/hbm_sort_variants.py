@@ -12,7 +12,8 @@ together), checks three small sorts against the plain version, and times
 with CUDA events (median of 7 after a warmup), on random keys: the 20M
 pair-32 sort whole and as phase A and phase B, the 20M packed-32 sort with
 one int32 payload, and the 10M packed-32 and wide sorts with four int64
-payloads. It prints one line per variant with the registers `ptxas`
+payloads; and the column gather alone at 20M x 3 int32, 10M x 4 int32 and
+10M x 4 int64. It prints one line per variant with the registers `ptxas`
 reports, then the card's name and power limit. The first variant is the
 one the port ships.
 """
@@ -83,6 +84,8 @@ def main() -> int:
         payload = torch.from_numpy(rng.integers(0, n, n).astype(np.int32)).to(dev)
         k10 = torch.from_numpy(rng.permutation(m).astype(np.int32)).to(dev)
         cols = tuple(torch.from_numpy(rng.integers(0, 2**40, m)).to(dev) for _ in range(4))
+        cols32 = tuple(c.to(torch.int32) for c in cols)
+        pos_perm = torch.randperm(n, device=dev).to(torch.int32)
         small = (torch.from_numpy(rng.integers(-5, 5, small_n).astype(np.int32)).to(dev),
                  torch.from_numpy(rng.integers(-(2**31), 2**31, small_n).astype(np.int32)).to(dev))
         checks = [(small, 2), (small, 1), ((cols[0][:small_n].contiguous(), small[0]), 1)]
@@ -117,6 +120,9 @@ def main() -> int:
                 "packed32_20M_1_payload_ms": time_ms(lambda _: hs.hbm_sort((keys, payload))),
                 "packed32_10M_4xint64_ms": time_ms(lambda _: hs.hbm_sort((k10,) + cols)),
                 "wide_10M_4xint64_ms": time_ms(lambda _: hs.hbm_sort((cols[0],) + cols)),
+                "gather_20M_3xint32_ms": time_ms(lambda _: hs.gather(pos_perm, (keys, pos, payload))),
+                "gather_10M_4xint32_ms": time_ms(lambda _: hs.gather(k10, cols32)),
+                "gather_10M_4xint64_ms": time_ms(lambda _: hs.gather(k10, cols)),
                 "registers_per_kernel": regs,
             }
             print(name, {k: round(v, 3) if isinstance(v, float) else v for k, v in rec.items()}, flush=True)

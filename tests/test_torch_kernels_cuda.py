@@ -7,8 +7,9 @@ with the card and no jax, run them without the JAX test harness:
 
 The cases are the adversarial ones `chip_smoke.py` runs (those of
 tests/test_hbm_sort.py, tests/test_join_scan.py, tests/test_pallas_sort.py
-and tests/test_radix.py, plus runs that cross the scan's blocks and the
-bitonic sort's tiles). Every comparison is exact.
+and tests/test_radix.py, plus runs that cross the scan's blocks, every
+width of the bitonic network, and the row and column gathers' windows,
+edges and alignments). Every comparison is exact.
 """
 
 import numpy as np
@@ -187,6 +188,140 @@ def test_bitonic_kernel_matches_plain(cuda):
             assert torch.equal(g, w), name
 
 
+def test_bitonic_network_matches_plain_at_every_width(cuda):
+    import chip_smoke
+    from pim_sort_merge_join_tpu_torch.ops import kernels
+    from pim_sort_merge_join_tpu_torch.ops.kernels import bitonic_sort as bs
+
+    for name, keys, vals in chip_smoke.bitonic_width_cases(np.random.default_rng(70), bs.LOG_TILE):
+        k, v = torch.from_numpy(keys).to(cuda), torch.from_numpy(vals).to(cuda)
+        want = bs.bitonic_sort_plain(k, v)
+        kernels.reset_launch_counts()
+        got = bs.bitonic_sort_cuda(k, v)
+        counts = kernels.launch_counts()
+        passes = bs.bitonic_schedule(len(keys))
+        assert counts["bitonic_strided"] == sum(p.strided for p in passes), name
+        assert counts["bitonic_local"] == sum(not p.strided for p in passes), name
+        # One element in: the arrays leave the kernel's 16-byte alignment.
+        off = bs.bitonic_sort_cuda(torch.cat([k[:1], k])[1:], torch.cat([v[:1], v])[1:])
+        for g, o, w in zip(got, off, want):
+            assert torch.equal(g, w) and torch.equal(o, w), name
+
+
+def test_bitonic_sort_at_the_cap_takes_at_most_20_launches(cuda):
+    from pim_sort_merge_join_tpu_torch.ops import kernels
+    from pim_sort_merge_join_tpu_torch.ops.kernels import bitonic_sort as bs
+
+    n = 2_000_000  # pads to the 2^21 cap
+    keys = torch.randint(0, 3 * n, (n,), dtype=torch.int32, device=cuda)
+    vals = torch.arange(n, dtype=torch.int32, device=cuda)
+    kernels.reset_launch_counts()
+    got_k, got_v = bs.sort_pairs(keys, vals)
+    counts = kernels.launch_counts()
+    assert counts["bitonic_local"] + counts["bitonic_strided"] == 17 <= 20
+    assert {name for name, c in counts.items() if c} == {"bitonic_local", "bitonic_strided"}
+    want_k, order = torch.sort(keys, stable=True)
+    assert torch.equal(got_k, want_k) and torch.equal(got_v, order.to(torch.int32))
+
+
+@pytest.mark.parametrize("n", [1, 2, 255, 256, 257, 8191, 8193, 40_000])
+def test_bitonic_kernels_pad_inside_the_passes(cuda, n):
+    """`sort_pairs` on the card copies no padding: the first pass makes the
+    largest pair past the input's end and the last pass writes only the
+    input's length, pairs equal to the padding included."""
+    from pim_sort_merge_join_tpu_torch.ops import kernels
+    from pim_sort_merge_join_tpu_torch.ops.kernels import bitonic_sort as bs
+
+    rng = np.random.default_rng(74)
+    keys = rng.integers(-5, 5, n).astype(np.int32)
+    vals = rng.integers(-(2**31), 2**31, n).astype(np.int32)
+    keys[rng.random(n) < 0.2] = 2**31 - 1
+    vals[rng.random(n) < 0.5] = 2**31 - 1
+    k, v = torch.from_numpy(keys).to(cuda), torch.from_numpy(vals).to(cuda)
+    kernels.reset_launch_counts()
+    got = bs.sort_pairs(k, v)
+    assert sum(kernels.launch_counts().values()) == len(bs.bitonic_schedule(max(bs._next_pow2(n), 256)))
+    want = bs.sort_pairs(k.cpu(), v.cpu())
+    assert got[0].shape == (n,) and torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    with pytest.raises(ValueError, match="holds the 257 pairs, got 256"):
+        bs.bitonic_sort_cuda(torch.zeros(257, dtype=torch.int32, device=cuda),
+                             torch.zeros(257, dtype=torch.int32, device=cuda), width=256)
+
+
+def test_gather_rows_kernel_matches_plain(cuda):
+    import chip_smoke
+    from pim_sort_merge_join_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    cases = chip_smoke.gather_rows_cases(np.random.default_rng(71))
+    for case in cases:
+        assert chip_smoke.rows_err(case, device=cuda) == 0, case[0]
+    # One launch for every two of a case's parts, a wide table counted by its slices.
+    from pim_sort_merge_join_tpu_torch.ops.kernels import gather as gr
+
+    launches = sum(
+        -(-len(gr.row_slices([(torch.from_numpy(s), i, list(range(s.shape[1])) if c is None else c)
+                              for s, i, c in case[1]])) // gr.MAX_PARTS)
+        for case in cases
+    )
+    assert kernels.launch_counts()["gather_rows"] == launches > len(cases)
+
+
+def test_column_gather_kernel_matches_indexing(cuda):
+    import chip_smoke
+    from pim_sort_merge_join_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    cases = chip_smoke.column_gather_cases(np.random.default_rng(72))
+    for case in cases:
+        assert chip_smoke.column_gather_err(case, device=cuda) == 0, case[0]
+    # One launch per column, aligned and offset.
+    assert kernels.launch_counts()["hbm_sort_gather"] == 2 * sum(len(c[2]) for c in cases)
+
+
+def test_rows_move_through_the_row_gather_and_no_library_call(cuda, monkeypatch):
+    """`sort_by_key`, the inner join's emit and the fused join's emit sorts
+    launch `gather_rows` and never reach `index_select`."""
+    import chip_smoke
+    from pim_sort_merge_join_tpu_torch import Table
+    from pim_sort_merge_join_tpu_torch.ops import join as join_ops
+    from pim_sort_merge_join_tpu_torch.ops import kernels
+    from pim_sort_merge_join_tpu_torch.ops import sort as sort_ops
+
+    r1, r2, _ = chip_smoke.staged_inputs(20_000, "auto")
+    t1, t2 = Table.from_numpy(r1, device=cuda), Table.from_numpy(r2, device=cuda)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("index_select reached on a CUDA path")
+
+    monkeypatch.setattr(torch.Tensor, "index_select", refuse)
+    monkeypatch.setattr(torch, "index_select", refuse)
+    for algorithm, bitonic in (("auto", 0), ("pallas_bitonic", 1)):
+        kernels.reset_launch_counts()
+        s1 = sort_ops.sort_by_key(t1, 0, algorithm=algorithm)
+        counts = kernels.launch_counts()
+        assert counts["gather_rows"] == 1 and counts["hbm_sort_gather"] == 0
+        assert (counts["bitonic_local"] > 0) == bool(bitonic)
+        assert (counts["hbm_sort_chunk"] > 0) != bool(bitonic)
+    s2 = sort_ops.sort_by_key(t2, 0)
+    kernels.reset_launch_counts()
+    out = join_ops.merge_join(s1, s2, 0, 0, mode="inner", out_capacity=40_000)
+    assert kernels.launch_counts()["gather_rows"] == 1
+    kernels.reset_launch_counts()
+    fused = join_ops.merge_join(t1, t2, 0, 0, presorted=False)
+    counts = kernels.launch_counts()
+    assert counts["gather_rows"] == 1 and counts["hbm_sort_gather"] == 2  # wide keys: int64
+    monkeypatch.undo()
+    s1c, s2c = (Table.from_numpy(r[np.argsort(r[:, 0], kind="stable")], device="cpu")
+                for r in (r1, r2))
+    want = join_ops.merge_join(s1c, s2c, 0, 0, mode="inner", out_capacity=40_000)
+    assert torch.equal(out.data.cpu(), want.data) and int(out.num_rows) == int(want.num_rows) > 0
+    want = join_ops.merge_join(Table.from_numpy(r1, device="cpu"), Table.from_numpy(r2, device="cpu"),
+                               0, 0, presorted=False)
+    assert torch.equal(fused.data.cpu(), want.data) and int(fused.num_rows) == int(want.num_rows)
+
+
 def test_radix_kernel_matches_plain(cuda):
     import chip_smoke
     from pim_sort_merge_join_tpu_torch.ops.kernels import radix_sort as rs
@@ -224,8 +359,12 @@ def test_pipeline_on_card_matches_cpu(cuda, key_offset):
     got = QueryPipeline(cfg, device=cuda).run_tables(
         Table.from_numpy(r1, device=cuda), Table.from_numpy(r2, device=cuda)
     )
-    ran = {name for name, n in kernels.launch_counts().items() if n > 0}
-    assert ran == chip_smoke.FUSED_KERNELS
+    counts = kernels.launch_counts()
+    ran = {name for name, n in counts.items() if n > 0}
+    # Narrow keys: every sort carries its operands in the element or moves
+    # rows; 64-bit keys: the merge sort gathers its two operands.
+    assert ran == (chip_smoke.FUSED_WIDE_KERNELS if key_offset else chip_smoke.FUSED_KERNELS)
+    assert counts["gather_rows"] == 1
     want = QueryPipeline(cfg, device="cpu").run_tables(
         Table.from_numpy(r1, device="cpu"), Table.from_numpy(r2, device="cpu")
     )
@@ -244,11 +383,41 @@ def test_staged_pipeline_on_card_matches_cpu(cuda, sort_algorithm):
     got = QueryPipeline(cfg, device=cuda).run_tables(
         Table.from_numpy(r1, device=cuda), Table.from_numpy(r2, device=cuda)
     )
-    ran = {name for name, n in kernels.launch_counts().items() if n > 0}
+    counts = kernels.launch_counts()
+    ran = {name for name, n in counts.items() if n > 0}
     want_ran = chip_smoke.STAGED_KERNELS
     if sort_algorithm == "pallas_bitonic":
         want_ran = chip_smoke.STAGED_BITONIC_KERNELS
     assert ran == want_ran
+    assert counts["gather_rows"] == 3  # two table sorts and the join's emit
+    want = QueryPipeline(cfg, device="cpu").run_tables(
+        Table.from_numpy(r1, device="cpu"), Table.from_numpy(r2, device="cpu")
+    )
+    assert torch.equal(got.data.cpu(), want.data)
+    assert int(got.num_rows) == int(want.num_rows) > 0
+
+
+@pytest.mark.parametrize("join_mode", ["one_to_one", "inner"])
+def test_tables_wider_than_one_launch_reads_match_cpu(cuda, join_mode):
+    """Rows of 88 and 136 bytes: the row gather goes in column slices, the
+    query's buffer stays equal to the plain path's."""
+    import chip_smoke
+    from pim_sort_merge_join_tpu_torch import QueryPipeline, Table
+    from pim_sort_merge_join_tpu_torch.ops import kernels
+
+    if join_mode == "inner":
+        r1, r2, cfg = chip_smoke.staged_inputs(20_000, "auto")
+    else:
+        r1, r2, cfg = chip_smoke.slice_inputs(20_000)
+    rng = np.random.default_rng(73)
+    r1 = np.column_stack([r1, rng.integers(-(2**40), 2**40, (r1.shape[0], 7))])
+    r2 = np.column_stack([r2, rng.integers(-(2**40), 2**40, (r2.shape[0], 13))])
+    kernels.reset_launch_counts()
+    got = QueryPipeline(cfg, device=cuda).run_tables(
+        Table.from_numpy(r1, device=cuda), Table.from_numpy(r2, device=cuda)
+    )
+    # Table 1 is two slices, table 2's kept columns three: more than one launch.
+    assert kernels.launch_counts()["gather_rows"] >= 3
     want = QueryPipeline(cfg, device="cpu").run_tables(
         Table.from_numpy(r1, device="cpu"), Table.from_numpy(r2, device="cpu")
     )
@@ -286,3 +455,15 @@ def test_kernels_refuse_what_they_cannot_take(cuda):
         rs.radix_tile_sort((k32,), tile=1 << 16)
     with pytest.raises(ValueError, match="at most"):
         rs.radix_tile_sort((k32,) * 9, tile=256)
+
+    from pim_sort_merge_join_tpu_torch.ops.kernels import gather as gr
+
+    idx = torch.arange(16, dtype=torch.int32, device=cuda)
+    wide = torch.arange(16 * 9, dtype=torch.int64, device=cuda).reshape(16, 9)
+    assert torch.equal(gr.gather_rows([(wide, torch.flip(idx, [0]))]), torch.flip(wide, [0]))
+    with pytest.raises(ValueError, match="contiguous"):
+        gr.gather_rows([(torch.zeros((16, 8), dtype=torch.int64, device=cuda)[:, ::2], idx)])
+    with pytest.raises(ValueError, match="unsupported devices"):
+        gr.gather_rows([(torch.zeros((16, 4), dtype=torch.int64, device=cuda), idx.cpu())])
+    with pytest.raises(ValueError, match="shape"):
+        hs.gather(idx, (k,)[:1] + (k[:8],))

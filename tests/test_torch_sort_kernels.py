@@ -168,7 +168,7 @@ def test_radix_refuses_what_it_cannot_take():
 def test_plain_paths_launch_no_kernel():
     kernels.reset_launch_counts()
     counts = kernels.launch_counts()
-    assert {"bitonic_local", "bitonic_global", "radix_tile", "hbm_sort_chunk"} <= set(counts)
+    assert {"bitonic_local", "bitonic_strided", "radix_tile", "hbm_sort_chunk", "gather_rows"} <= set(counts)
     a = torch.arange(1024, dtype=torch.int32)
     bitonic_sort.sort_pairs(torch.flip(a, [0]), a)
     radix_sort.radix_tile_sort((torch.flip(a, [0]),), tile=256)

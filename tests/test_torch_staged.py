@@ -245,7 +245,8 @@ def _fields(cfg):
 # query runs with the hbm_sort table sorts only.
 RUN_TABLES_CASES = [
     (kind, port_sort)
-    for kind in ["reference_like", "duplicates", "wide_keys", "narrow_off", "int32", "slack"]
+    for kind in ["reference_like", "duplicates", "wide_keys", "narrow_off", "int32", "slack",
+                 "wide_tables"]
     for port_sort in ["auto", "pallas_bitonic"]
     if (kind, port_sort) != ("wide_keys", "pallas_bitonic")
 ]
@@ -273,6 +274,11 @@ def test_run_tables_inner_matches_reference(kind, port_sort):
     elif kind == "int32":
         r1, r2 = _dup_rows(rng, 300, 1000, np.int32), _dup_rows(rng, 300, 1000, np.int32)
         kw = dict(preds, dtype="int32")
+    elif kind == "wide_tables":  # rows of 80 and 136 bytes: past what one row-gather launch reads
+        r1, r2 = _dup_rows(rng, 300, key_hi=400), _dup_rows(rng, 260, key_hi=400)
+        r1 = np.column_stack([r1, rng.integers(-(2**40), 2**40, (300, 6))])
+        r2 = np.column_stack([r2, rng.integers(-(2**40), 2**40, (260, 13))])
+        kw = preds
     else:  # slack: the output capacity is join_slack x table-1 capacity
         r1, r2 = _dup_rows(rng, 200, key_hi=60), _dup_rows(rng, 200, key_hi=60)
         kw = dict(preds, join_slack=12.0)
