@@ -16,7 +16,9 @@ Phases, in order; any failure exits non-zero:
      and the pair against the whole plain scan, with int64 and int32 keys;
      the bitonic network at every width from 2 to 2^21 and around its tile;
      the row gather over widths, windows, block edges, live counts and two
-     tables in one call; the column gather over lengths and alignments),
+     tables in one call; the column gather over lengths and alignments; both
+     radix sorts over tiles, digit widths, key bits, operand counts and
+     arrays one element off their alignment),
      then the shapes the paths give them, timed with CUDA events (median of
      3 after a warmup): the fused path's at 10M rows/table (its merge and
      un-merge sorts as phase A, phase B and whole, beside stable
@@ -24,9 +26,14 @@ Phases, in order; any failure exits non-zero:
      payload; the join scans over its 20M int32 keys and over the 1M
      wide-keys query's 2M int64 keys), both gathers at the paths' shapes
      beside `index_select`, the bitonic sort at its 2^21 cap, and the radix
-     tile sort at the merge sort's 20M elements, beside the chunk sort. The
-     radix sort then forms the runs of that merge sort (run formation:
-     radix runs + merge passes), which must equal the `hbm_sort` result;
+     tile sort at the merge sort's 20M elements (tiles of 2048, 512 and
+     8192), beside the chunk sort and one `torch.sort` of every tile's keys.
+     The radix sort then forms the runs of that merge sort (run formation:
+     radix runs + merge passes), which must equal the `hbm_sort` result.
+     Last the global radix sort (`xla_lsd_radix_sort`) of `(key, payload)`
+     at the fused path's merge, un-merge and emit sorts, which must equal
+     `hbm_sort`'s result element for element and the plain version on the
+     first 2^18 elements, beside `hbm_sort` and stable `torch.sort`;
   4. the query at 100k rows/table through `QueryPipeline.run_csv`: rows and
      CSV bytes equal the numpy oracle's;
   5. the fused query at 10M rows/table through `run_tables` (the main
@@ -415,7 +422,10 @@ def column_gather_err(case, device="cuda") -> int:
 
 
 def radix_cases(rng):
-    """(name, operands as int32 numpy arrays, tile, digit_bits, key_bits)."""
+    """(name, operands as int32 numpy arrays, tile, digit_bits, key_bits):
+    tiles from 100 to 8192, 1 to 8 operands, 4- and 8-bit digits, 12 to 32
+    key bits, sentinels, negative keys with 32 key bits, a tile with one
+    digit value in every pass and tiles with one in some."""
     cases = []
     for i, (tile, digit_bits, key_bits) in enumerate(
         (t, d, b) for t in (256, 512, 2048) for d in (4, 8) for b in (20, 32)
@@ -428,7 +438,100 @@ def radix_cases(rng):
                     np.arange(n, dtype=np.int32)][: i % 3]
         cases.append((f"t{tile}_d{digit_bits}_b{key_bits}_ops{1 + i % 3}", [key] + payloads,
                       tile, digit_bits, key_bits))
+
+    def payload(n):
+        return rng.integers(I32MIN, I32MAX, n).astype(np.int32)
+
+    for tile, digit_bits, key_bits, nops in ((8192, 8, 32, 2), (8192, 8, 25, 3), (128, 8, 32, 2),
+                                             (128, 4, 12, 1), (100, 4, 12, 2), (1000, 8, 32, 8),
+                                             (4096, 7, 31, 4), (16384, 8, 32, 2)):
+        n = 3 * tile
+        key = rng.integers(I32MIN if key_bits == 32 else 0, 1 << min(key_bits, 31), n).astype(np.int32)
+        key[rng.random(n) < 0.1] = I32MAX
+        cases.append((f"t{tile}_d{digit_bits}_b{key_bits}_ops{nops}",
+                      [key] + [payload(n) for _ in range(nops - 1)], tile, digit_bits, key_bits))
+    # Tile 0 holds one key only, tile 1 one value of the second digit, tile 2
+    # keys below 2^8, tile 3 anything.
+    tile = 2048
+    key = np.concatenate([np.full(tile, 0x1234, np.int32),
+                          (rng.integers(0, 256, tile) | 0x5A00 | (rng.integers(0, 99, tile) << 16)),
+                          rng.integers(0, 256, tile), rng.integers(I32MIN, I32MAX, tile)]).astype(np.int32)
+    cases.append(("one_digit_value_tiles", [key, payload(4 * tile)], tile, 8, 32))
+    cases.append(("one_digit_value_tiles_3ops", [key, payload(4 * tile), payload(4 * tile)], tile, 8, 32))
     return cases
+
+
+def lsd_cases(rng):
+    """(name, operands as int32 numpy arrays, digit_bits, key_bits) for the
+    global sort: the kinds of keys the blocked plain version is tested on
+    (all equal, one digit value in some pass, sentinels, negative keys with
+    32 key bits, 12, 25 and 31 key bits, 4-, 7- and 8-bit digits, keys
+    alone, three and eight operands, one element), lengths around its tile
+    and many tiles."""
+    from pim_sort_merge_join_tpu_torch.ops.kernels import radix_sort as rs
+
+    def payload(n):
+        return rng.integers(I32MIN, I32MAX, n).astype(np.int32)
+
+    def keys(n, hi, lo=0):
+        k = rng.integers(lo, hi, n).astype(np.int32)
+        k[rng.random(n) < 0.1] = I32MAX
+        return k
+
+    n = 50_000
+    one_digit = (rng.integers(0, 256, n) | 0x5A00 | (rng.integers(0, 64, n) << 16)).astype(np.int32)
+    cases = [
+        ("all_equal", [np.full(n, 7, np.int32), payload(n)], 8, 32),
+        ("one_digit_in_the_second_pass", [one_digit, payload(n)], 8, 32),
+        ("sentinels_b31", [keys(n, 1 << 20), np.arange(n, dtype=np.int32)], 8, 31),
+        ("sentinels_b32_d4", [keys(n, 1 << 20), payload(n)], 4, 32),
+        ("negative_keys_b32", [rng.integers(-1000, 1000, n).astype(np.int32), payload(n)], 8, 32),
+        ("int32_extremes_b32", [rng.choice(np.array([I32MIN, I32MIN + 1, -1, 0, 1, I32MAX - 1,
+                                                     I32MAX], np.int32), n), payload(n)], 8, 32),
+        ("key_bits_12", [rng.integers(0, 1 << 12, n).astype(np.int32), payload(n)], 8, 12),
+        ("key_bits_12_wider_keys", [keys(n, 1 << 20), payload(n)], 4, 12),
+        ("key_bits_25", [rng.permutation(1 << 25)[:n].astype(np.int32), payload(n)], 8, 25),
+        ("key_bits_25_d9", [rng.permutation(1 << 25)[:n].astype(np.int32), payload(n)], 9, 25),
+        ("key_bits_31_d7", [keys(n, I32MAX), payload(n)], 7, 31),
+        ("key_bits_32_d7", [rng.integers(I32MIN, I32MAX, n).astype(np.int32), payload(n)], 7, 32),
+        ("key_bits_32_d11", [rng.integers(I32MIN, I32MAX, n).astype(np.int32), payload(n)], 11, 32),
+        ("few_distinct_d4", [rng.integers(0, 5, n).astype(np.int32), np.arange(n, dtype=np.int32)], 4, 32),
+        ("key_only", [keys(n, 1 << 30, I32MIN)], 8, 32),
+        ("three_operands", [keys(n, 50), payload(n), np.arange(n, dtype=np.int32)], 8, 32),
+        ("eight_operands", [keys(n, 1 << 14)] + [payload(n) for _ in range(7)], 7, 14),
+        ("one_element", [np.array([-5], np.int32), np.array([9], np.int32)], 8, 32),
+    ]
+    tile = rs.LSD_THREADS * rs.LSD_ITEMS
+    for n in (tile - 1, tile, tile + 1, 33 * tile + 5, 1 << 22):
+        cases.append((f"n_{n}", [keys(n, 3 * n, -n), payload(n)], 8, 32))
+    return cases
+
+
+PLAIN_LSD_MAX = 1 << 20  # the plain version's [n, 2^digit_bits] one-hot bounds it
+PLAIN_LSD_HEAD = 1 << 18  # what of a path's shape it is given here: 0.4 s a sort
+
+
+def lsd_want(ops, digit_bits: int, key_bits: int):
+    """What the global sort must give: the plain version where it can hold
+    the input, else a stable `torch.sort` of the bits the passes read."""
+    from pim_sort_merge_join_tpu_torch.ops.kernels import radix_sort as rs
+
+    if ops[0].shape[0] <= PLAIN_LSD_MAX:
+        return rs.xla_lsd_radix_sort_plain(ops, digit_bits=digit_bits, key_bits=key_bits)
+    import torch
+
+    read = -(-key_bits // digit_bits) * digit_bits
+    seen = (ops[0].long() & 0xFFFFFFFF) & ((1 << read) - 1)
+    order = torch.sort(seen, stable=True).indices
+    return tuple(o[order] for o in ops)
+
+
+def one_element_in(t):
+    """The same values one element into a new buffer: contiguous, but off
+    the 16-byte alignment."""
+    import torch
+
+    return torch.cat([t[:1], t])[1:]
 
 
 def plain_sort_pairs(keys, vals):
@@ -481,9 +584,9 @@ def phase_adversarial(rng) -> dict[str, int]:
     from pim_sort_merge_join_tpu_torch.ops.kernels import radix_sort as rs
 
     errs = {"sort": 0, "scan": 0, "scan_forward": 0, "scan_backward": 0, "bitonic": 0, "radix": 0,
-            "gather_rows": 0, "gather": 0}
+            "lsd": 0, "gather_rows": 0, "gather": 0}
     sorts, scans = sort_cases(rng), scan_cases(rng)
-    bitonics, radixes = bitonic_cases(rng), radix_cases(rng)
+    bitonics, radixes, lsds = bitonic_cases(rng), radix_cases(rng), lsd_cases(rng)
     widths = bitonic_width_cases(rng, bs.LOG_TILE)
     rows, columns = gather_rows_cases(rng), column_gather_cases(rng)
     for case in rows:
@@ -523,13 +626,23 @@ def phase_adversarial(rng) -> dict[str, int]:
     for name, arrays, tile, digit_bits, key_bits in radixes:
         ops = tuple(torch.from_numpy(a).cuda() for a in arrays)
         kw = dict(tile=tile, digit_bits=digit_bits, key_bits=key_bits)
-        err = max_abs_err(rs.radix_tile_sort(ops, **kw), rs.radix_tile_sort_plain(ops, **kw))
+        want = rs.radix_tile_sort_plain(ops, **kw)
+        err = max(max_abs_err(rs.radix_tile_sort(ops, **kw), want),
+                  max_abs_err(rs.radix_tile_sort(tuple(one_element_in(o) for o in ops), **kw), want))
         check(err == 0, f"radix case {name}: kernel differs from plain (max err {err})")
         errs["radix"] = max(errs["radix"], err)
+    for name, arrays, digit_bits, key_bits in lsds:
+        ops = tuple(torch.from_numpy(a).cuda() for a in arrays)
+        kw = dict(digit_bits=digit_bits, key_bits=key_bits)
+        want = lsd_want(ops, **kw)
+        err = max(max_abs_err(rs.xla_lsd_radix_sort(ops, **kw), want),
+                  max_abs_err(rs.xla_lsd_radix_sort(tuple(one_element_in(o) for o in ops), **kw), want))
+        check(err == 0, f"global radix sort case {name}: kernels differ from plain (max err {err})")
+        errs["lsd"] = max(errs["lsd"], err)
     torch.cuda.synchronize()
     log(f"adversarial: {len(sorts)} sort, {len(scans)} scan, {len(bitonics)} + {len(widths)} "
-        f"bitonic, {len(radixes)} radix, {len(rows)} row gather, {len(columns)} column gather "
-        f"cases equal")
+        f"bitonic, {len(radixes)} radix tile, {len(lsds)} global radix, {len(rows)} row gather, "
+        f"{len(columns)} column gather cases equal")
     return errs
 
 
@@ -719,6 +832,7 @@ def phase_main_path_shapes(r1, r2, cfg) -> dict:
     log("main-path shapes (ms, kernel vs plain vs library): " + json.dumps(rec))
     rec.update(phase_gather_shapes(t1.data, t2.data, perm, num_out))
     rec.update(phase_run_formation(keys, pos))
+    rec.update(phase_lsd_shapes(keys, pos, mpos, dest, d1u))
     return rec
 
 
@@ -876,6 +990,9 @@ def phase_run_formation(keys, pos) -> dict:
                                               rs.radix_tile_sort_plain((kp, pp), **kw))
         rec[f"radix{tile}_ms"] = time_ms(lambda _: rs.radix_tile_sort((kp, pp), **kw))
         rec[f"radix{tile}_plain_ms"] = time_ms(lambda _: rs.radix_tile_sort_plain((kp, pp), **kw))
+        # One PyTorch call sorts every tile's keys (and moves no payload).
+        rec[f"radix{tile}_library_ms"] = time_ms(
+            lambda _: torch.sort(kp.view(-1, tile), dim=1, stable=True))
         check(rec[f"radix{tile}_err"] == 0, f"radix tile {tile}: kernel differs from plain")
     rec["radix_bound"] = bound(2 * nbytes(kp, pp), compares=4 * npad)
     rec["chunk_sort_ms"] = time_ms(lambda _: hs.chunk_sort(keys, pos, hs.KIND_PAIR32))
@@ -892,6 +1009,71 @@ def phase_run_formation(keys, pos) -> dict:
     check(rec["run_formation_err"] == 0,
           f"run formation differs from the chunk sort's ({rec['run_formation_err']})")
     log("run formation (ms, radix vs plain vs chunk sort): " + json.dumps(rec))
+    return rec
+
+
+LSD_KERNELS = {"lsd_radix_histogram", "lsd_radix_scan", "lsd_radix_pass"}
+
+
+def phase_lsd_shapes(keys, pos, mpos, dest, d1u) -> dict:
+    """The global radix sort of `(key, payload)` at the fused query's sort
+    shapes: the 20M merge sort (non-negative keys and sentinels, 31 key
+    bits), the 20M un-merge sort (a permutation below 2^25 as key; also read
+    as 25 key bits in 9-bit digits, three passes for four) and the 10M emit
+    sort. Each must equal `hbm_sort`'s result element for element, and the
+    plain version on its first 2^18 elements; timed beside `hbm_sort` and a
+    stable `torch.sort` of the key alone. The sorts run once with the
+    launch counts set to 0 just before: only the global sort's kernels may
+    have run."""
+    import torch
+
+    from pim_sort_merge_join_tpu_torch.ops import kernels
+    from pim_sort_merge_join_tpu_torch.ops.kernels import hbm_sort as hs
+    from pim_sort_merge_join_tpu_torch.ops.kernels import radix_sort as rs
+
+    iota = torch.arange(d1u.shape[0], dtype=torch.int32, device="cuda")
+    shapes = {
+        "merge": ((keys, pos), dict(digit_bits=8, key_bits=31),
+                  lambda: hs.sort_elements(keys, pos, hs.KIND_PAIR32)),
+        "unmerge": ((mpos, dest), dict(digit_bits=8, key_bits=32),
+                    lambda: hs.sort_elements(mpos, dest, hs.KIND_PAIR32)),
+        "unmerge_b25_d9": ((mpos, dest), dict(digit_bits=9, key_bits=25),
+                           lambda: hs.sort_elements(mpos, dest, hs.KIND_PAIR32)),
+        "emit": ((d1u, iota), dict(digit_bits=8, key_bits=32),
+                 lambda: hs.sort_elements(d1u, d1u, hs.KIND_PACKED32)),
+    }
+    check(int(keys.min()) >= 0 and int(mpos.max()) < 1 << 25 and int(d1u.min()) >= 0,
+          "global radix sort shapes: keys outside the bits the passes read")
+    rec = {}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got = {name: rs.xla_lsd_radix_sort(ops, **kw) for name, (ops, kw, _) in shapes.items()}
+    torch.cuda.synchronize()
+    rec["lsd_launches"] = {k: v for k, v in kernels.launch_counts().items() if v > 0}
+    check(set(rec["lsd_launches"]) == LSD_KERNELS,
+          f"global radix sort launched {sorted(rec['lsd_launches'])}")
+    for name, (ops, kw, by_hbm_sort) in shapes.items():
+        n = ops[0].shape[0]
+        head = tuple(o[:PLAIN_LSD_HEAD].contiguous() for o in ops)
+        err = max(max_abs_err(got[name], by_hbm_sort()),
+                  max_abs_err(rs.xla_lsd_radix_sort(head, **kw), rs.xla_lsd_radix_sort_plain(head, **kw)))
+        check(err == 0, f"global radix sort, {name} shape: differs from hbm_sort or plain ({err})")
+        npass = -(-kw["key_bits"] // kw["digit_bits"])
+        rec[f"lsd_{name}"] = {
+            "n": n, "passes": npass, "err": err,
+            "ms": time_ms(lambda _: rs.xla_lsd_radix_sort(ops, **kw)),
+            "hbm_sort_ms": time_ms(lambda _: by_hbm_sort()),
+            "library_ms": time_ms(lambda _: torch.sort(ops[0], stable=True)),
+            "head_ms": time_ms(lambda _: rs.xla_lsd_radix_sort(head, **kw)),
+            "head_n": head[0].shape[0],
+            **bound(2 * nbytes(*ops)),
+            # Every pass moves the operands once more, and the histogram reads the key.
+            "passes_bound_ms": bound(npass * 2 * nbytes(*ops) + nbytes(ops[0]))["bound_ms"],
+        }
+    head = tuple(o[:PLAIN_LSD_HEAD].contiguous() for o in shapes["merge"][0])
+    rec["lsd_merge"]["head_plain_ms"] = time_ms(
+        lambda _: rs.xla_lsd_radix_sort_plain(head, **shapes["merge"][1]), reps=1)
+    log("global radix sort (ms, kernels vs hbm_sort vs library; plain on the head): " + json.dumps(rec))
     return rec
 
 
@@ -1145,6 +1327,7 @@ def main() -> int:
     # (`rows_emit`, `rows_inner_emit`), which no single call computes, are in
     # the "gather shapes" line.
     gather, rows = shapes["gather_20M_3xint32"], shapes["rows_table_sort"]
+    lsd = shapes["lsd_merge"]
     gather_err = max(errs["gather"], *(v["err"] for k, v in shapes.items() if k.startswith("gather_")))
     rows_err_ = max(errs["gather_rows"], shapes["emit_sort_err"],
                     *(v["err"] for k, v in shapes.items() if k.startswith("rows_")))
@@ -1173,8 +1356,18 @@ def main() -> int:
               bitonic["bitonic_library_ms"]),
         entry("radix_tile_sort", "radix_sort.cu", "radix_sort.py:78",
               shapes["launches"]["radix_tile"],
-              max(errs["radix"], shapes["radix2048_err"], shapes["radix512_err"]),
-              shapes["radix2048_ms"], shapes["radix2048_plain_ms"], shapes["radix_bound"]),
+              max(errs["radix"], *(shapes[f"radix{t}_err"] for t in (2048, 512, 8192))),
+              shapes["radix2048_ms"], shapes["radix2048_plain_ms"], shapes["radix_bound"],
+              shapes["radix2048_library_ms"]),
+        # The global sort at the merge sort's shape; its plain version is
+        # timed on the first `plain_n` elements (an [n, 256] one-hot bounds
+        # what it holds), where the kernels take `head_ms`.
+        {**entry("lsd_radix_sort", "radix_sort.cu", "radix_sort.py:187",
+                 sum(shapes["lsd_launches"].values()),
+                 max(errs["lsd"], *(v["err"] for k, v in shapes.items() if k.startswith("lsd_")
+                                    and k != "lsd_launches")),
+                 lsd["ms"], lsd["head_plain_ms"], lsd, lsd["library_ms"]),
+         "plain_n": lsd["head_n"], "head_ms": lsd["head_ms"]},
     ]
     log(f"slice 10M: {rows10} rows in {ms10:.3f} ms; staged inner 10M: {rowsa} rows in "
         f"{msa:.3f} ms; staged inner 2M bitonic: {rowsb} rows in {msb:.3f} ms")

@@ -9,7 +9,8 @@ The cases are the adversarial ones `chip_smoke.py` runs (those of
 tests/test_hbm_sort.py, tests/test_join_scan.py, tests/test_pallas_sort.py
 and tests/test_radix.py, plus runs that cross the scan's blocks, every
 width of the bitonic network, and the row and column gathers' windows,
-edges and alignments). Every comparison is exact.
+edges and alignments, and the global radix sort around its tile, over many
+tiles and twenty times over). Every comparison is exact.
 """
 
 import numpy as np
@@ -324,13 +325,107 @@ def test_rows_move_through_the_row_gather_and_no_library_call(cuda, monkeypatch)
 
 def test_radix_kernel_matches_plain(cuda):
     import chip_smoke
+    from pim_sort_merge_join_tpu_torch.ops import kernels
     from pim_sort_merge_join_tpu_torch.ops.kernels import radix_sort as rs
 
-    for name, arrays, tile, digit_bits, key_bits in chip_smoke.radix_cases(np.random.default_rng(64)):
+    cases = chip_smoke.radix_cases(np.random.default_rng(64))
+    # Tiles from 100 to 16384 with 128 and 8192 among them, 8 operands, a
+    # tile of one digit value.
+    assert {128, 8192} <= {c[2] for c in cases} and max(len(c[1]) for c in cases) == 8
+    kernels.reset_launch_counts()
+    for name, arrays, tile, digit_bits, key_bits in cases:
         ops = tuple(torch.from_numpy(a).to(cuda) for a in arrays)
         kw = dict(tile=tile, digit_bits=digit_bits, key_bits=key_bits)
-        for g, w in zip(rs.radix_tile_sort(ops, **kw), rs.radix_tile_sort_plain(ops, **kw)):
-            assert torch.equal(g, w), name
+        want = rs.radix_tile_sort_plain(ops, **kw)
+        # One element in: the arrays leave the 16-byte alignment.
+        off = rs.radix_tile_sort(tuple(chip_smoke.one_element_in(o) for o in ops), **kw)
+        for g, o, w in zip(rs.radix_tile_sort(ops, **kw), off, want):
+            assert torch.equal(g, w) and torch.equal(o, w), name
+    counts = kernels.launch_counts()
+    assert {k for k, c in counts.items() if c} == {"radix_tile"}
+    assert counts["radix_tile"] == 2 * len(cases)
+
+
+def test_global_radix_sort_matches_plain(cuda):
+    import chip_smoke
+    from pim_sort_merge_join_tpu_torch.ops import kernels
+    from pim_sort_merge_join_tpu_torch.ops.kernels import radix_sort as rs
+
+    cases = chip_smoke.lsd_cases(np.random.default_rng(75))
+    tile = rs.LSD_THREADS * rs.LSD_ITEMS
+    assert {tile - 1, tile, tile + 1, 33 * tile + 5, 1 << 22} <= {len(c[1][0]) for c in cases}
+    for name, arrays, digit_bits, key_bits in cases:
+        ops = tuple(torch.from_numpy(a).to(cuda) for a in arrays)
+        kw = dict(digit_bits=digit_bits, key_bits=key_bits)
+        kernels.reset_launch_counts()
+        got = rs.xla_lsd_radix_sort(ops, **kw)
+        counts = {k: c for k, c in kernels.launch_counts().items() if c}
+        want_counts = {"lsd_radix_histogram": 1, "lsd_radix_scan": 1,
+                       "lsd_radix_pass": -(-key_bits // digit_bits)}
+        if len(ops) > 2:  # more than one payload: gathered by the sorted index
+            want_counts["hbm_sort_gather"] = len(ops) - 1
+        assert counts == want_counts, name
+        off = rs.xla_lsd_radix_sort(tuple(chip_smoke.one_element_in(o) for o in ops), **kw)
+        for g, o, w in zip(got, off, chip_smoke.lsd_want(ops, **kw)):
+            assert g.dtype == w.dtype and torch.equal(g, w) and torch.equal(o, w), name
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda)
+    kernels.reset_launch_counts()
+    assert [tuple(t.shape) for t in rs.xla_lsd_radix_sort((empty, empty))] == [(0,), (0,)]
+    assert not any(kernels.launch_counts().values())
+
+
+def test_global_radix_sort_repeats_give_one_answer(cuda):
+    """20 runs over 300 tiles, few distinct digits in the top passes: an
+    ordering fault in the look-back would show only sometimes."""
+    from pim_sort_merge_join_tpu_torch.ops.kernels import radix_sort as rs
+
+    n = 300 * rs.LSD_THREADS * rs.LSD_ITEMS + 77
+    gen = torch.Generator(device=cuda).manual_seed(76)
+    key = torch.randint(0, 1 << 18, (n,), generator=gen, device=cuda).to(torch.int32)
+    key[torch.rand(n, generator=gen, device=cuda) < 0.2] = 2**31 - 1
+    pos = torch.arange(n, dtype=torch.int32, device=cuda)
+    want_key, order = torch.sort(key, stable=True)
+    for rep in range(20):
+        got_key, got_pos = rs.xla_lsd_radix_sort((key, pos), key_bits=31)
+        assert torch.equal(got_key, want_key) and torch.equal(got_pos, order.to(torch.int32)), rep
+
+
+def test_global_radix_sort_runs_its_own_kernels_and_no_library_call(cuda, monkeypatch):
+    """On CUDA tensors the sort launches the port's kernels: no `torch.sort`,
+    `cumsum`, `one_hot` or `index_copy_`, and nothing read back between the
+    launches; the result equals `hbm_sort`'s."""
+    from pim_sort_merge_join_tpu_torch.ops import kernels
+    from pim_sort_merge_join_tpu_torch.ops.kernels import hbm_sort as hs
+    from pim_sort_merge_join_tpu_torch.ops.kernels import radix_sort as rs
+
+    n = 1_000_003
+    key = torch.randint(0, 3 * n, (n,), dtype=torch.int32, device=cuda)
+    pos = torch.arange(n, dtype=torch.int32, device=cuda)
+    extra = torch.randint(-(2**31), 2**31 - 1, (n,), dtype=torch.int32, device=cuda)
+    want = hs.hbm_sort((key, pos, extra))
+    torch.cuda.synchronize()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a library call or a readback on the global radix sort's CUDA path")
+
+    for owner, name in ((torch, "sort"), (torch.Tensor, "sort"), (torch, "cumsum"),
+                        (torch.Tensor, "cumsum"), (torch.nn.functional, "one_hot"),
+                        (torch.Tensor, "index_copy_"), (torch, "argsort"),
+                        (torch.Tensor, "item"), (torch.Tensor, "cpu"), (torch.Tensor, "tolist"),
+                        (torch.Tensor, "__bool__"), (torch.Tensor, "__int__"),
+                        (torch.cuda, "synchronize")):
+        monkeypatch.setattr(owner, name, refuse)
+    kernels.reset_launch_counts()
+    two = rs.xla_lsd_radix_sort((key, pos), key_bits=31)
+    three = rs.xla_lsd_radix_sort((key, pos, extra), key_bits=31)
+    counts = kernels.launch_counts()
+    monkeypatch.undo()
+    assert counts["lsd_radix_histogram"] == counts["lsd_radix_scan"] == 2
+    assert counts["lsd_radix_pass"] == 8 and counts["hbm_sort_gather"] == 2
+    for g, w in zip(two, want[:2]):
+        assert torch.equal(g, w)
+    for g, w in zip(three, want):
+        assert torch.equal(g, w)
 
 
 def test_radix_runs_merge_into_the_hbm_sort_permutation(cuda):
@@ -455,6 +550,16 @@ def test_kernels_refuse_what_they_cannot_take(cuda):
         rs.radix_tile_sort((k32,), tile=1 << 16)
     with pytest.raises(ValueError, match="at most"):
         rs.radix_tile_sort((k32,) * 9, tile=256)
+    with pytest.raises(ValueError, match="shared memory"):
+        rs.radix_tile_sort((k32,), tile=256, digit_bits=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        rs.xla_lsd_radix_sort((strided,))
+    with pytest.raises(ValueError, match="at most"):
+        rs.xla_lsd_radix_sort((k32,) * 9)
+    with pytest.raises(ValueError, match="shared memory"):
+        rs.xla_lsd_radix_sort((k32,), digit_bits=12)
+    with pytest.raises(ValueError, match="int32"):
+        rs.xla_lsd_radix_sort((k32, k32.long()))
 
     from pim_sort_merge_join_tpu_torch.ops.kernels import gather as gr
 
