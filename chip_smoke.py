@@ -4,9 +4,10 @@ Usage, from the root of a checkout, on a machine with an NVIDIA H100 and
 the CUDA toolkit:
 
     python3 chip_smoke.py            # every phase below
-    python3 chip_smoke.py --profile  # the fused 10M and staged 10M queries
-                                     # under torch.profiler: busy time,
-                                     # launches and the top kernels
+    python3 chip_smoke.py --profile  # the fused 10M, staged 10M and 1:1
+                                     # hash 10M queries under
+                                     # torch.profiler: busy time, launches
+                                     # and the top kernels
 
 Phases, in order; any failure exits non-zero:
   1. card details (nvidia-smi, torch, CUDA, nvcc);
@@ -41,7 +42,18 @@ Phases, in order; any failure exits non-zero:
   6. the same at 1M rows/table with keys offset by 2^40 (64-bit keys);
   7. the staged inner join at 10M rows/table (duplicate keys, the
      `hbm_sort` table sorts), then at 2M rows/table with the bitonic table
-     sorts, each against the plain path on CPU tensors.
+     sorts, each against the plain path on CPU tensors;
+  8. the hash paths (`join_algorithm="hash"`) at 10M rows/table: first
+     their kernels at the shapes the 1:1 hash join gives them (the hash
+     mixes, the 20M wide merge sort of int64 hashes and positions, the
+     20M int64 join scan pair, the 10M x 7 int64 restore sort, a 10M hash
+     row sort), then the 1:1 hash join on the fused query's tables and the
+     hash inner join on the staged query's, each against the plain path;
+  9. `hash_aggregate` over a 10M table for each aggregate, `merge_tree` of
+     8 sorted runs to 10M rows, `run_tables_resumable` at 2M rows/table
+     (run, then resume from the saved sorted stage) and the 100k CSV query
+     with `debug_log` on, whose events must agree with the result; each
+     against the plain path on CPU tensors.
 Each path runs with the launch counts set to 0 just before and read just
 after: exactly the kernels of that path must have run.
 
@@ -779,8 +791,14 @@ def phase_main_path_shapes(r1, r2, cfg) -> dict:
     rec["sort_n"], rec["sort_npad"], rec["merge_passes"] = n, npad, len(runs)
     # Kernels 1 and 2 at this shape: phase A reads both keys and writes the
     # elements; phase B (all passes) reads the elements and writes both keys.
-    rec["chunk"] = {"ms": rec["merge_sort_phase_a_ms"], "library_ms": None,
+    # One PyTorch call for phase A: every run of the packed elements sorted.
+    packed = hs.pack_pair32(torch.cat([keys, torch.full((npad - n,), I32MAX, dtype=torch.int32,
+                                                        device="cuda")]),
+                            torch.arange(npad, dtype=torch.int32, device="cuda"))
+    rec["chunk"] = {"ms": rec["merge_sort_phase_a_ms"],
+                    "library_ms": time_ms(lambda _: torch.sort(packed.view(-1, hs.RUN), dim=1)),
                     **bound(nbytes(keys, pos) + 8 * npad, compares=13 * npad)}
+    del packed
     elements = hs.chunk_sort(keys, pos, hs.KIND_PAIR32)[0]
     rec["merge"] = {"ms": rec["merge_sort_phase_b_ms"],
                     "library_ms": time_ms(lambda _: torch.sort(elements)),
@@ -1175,6 +1193,35 @@ def staged_inputs(n: int, sort_algorithm: str):
     return r1, r2, cfg
 
 
+def run_counted(fn, kernels_of_path: set, label: str):
+    """``fn()`` once with the launch counts set to 0 just before: exactly
+    ``kernels_of_path`` must have run. Returns (result, launches)."""
+    import torch
+
+    from pim_sort_merge_join_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    ran = {name for name, count in launches.items() if count > 0}
+    check(ran == kernels_of_path,
+          f"{label}: launched {sorted(ran)}, the path's kernels are {sorted(kernels_of_path)}")
+    return out, {k: v for k, v in launches.items() if v}
+
+
+def same_table(got, want, label: str) -> None:
+    import torch
+
+    check(got.data.dtype == want.data.dtype and tuple(got.data.shape) == tuple(want.data.shape),
+          f"{label}: output {got.data.dtype} {tuple(got.data.shape)} vs plain "
+          f"{want.data.dtype} {tuple(want.data.shape)}")
+    check(int(got.num_rows) == int(want.num_rows), f"{label}: num_rows differs from the plain path")
+    check(torch.equal(got.data.cpu(), want.data), f"{label}: output buffer differs from the plain path")
+    check(got.names == want.names, f"{label}: names differ")
+
+
 def phase_slice(r1, r2, cfg, *, expect_narrow: bool, label: str, kernels_of_path: set):
     """run_tables on CUDA vs the plain path on CPU; returns (launches, ms, rows).
 
@@ -1182,7 +1229,6 @@ def phase_slice(r1, r2, cfg, *, expect_narrow: bool, label: str, kernels_of_path
     import torch
 
     from pim_sort_merge_join_tpu_torch import QueryPipeline, Table
-    from pim_sort_merge_join_tpu_torch.ops import kernels
 
     g1 = Table.from_numpy(r1)
     g2 = Table.from_numpy(r2)
@@ -1190,25 +1236,246 @@ def phase_slice(r1, r2, cfg, *, expect_narrow: bool, label: str, kernels_of_path
     check(pipe.device.type == "cuda" and g1.device.type == "cuda",
           f"{label}: the default device is {pipe.device} / {g1.device}, not the card")
     torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    out = pipe.run_tables(g1, g2)
-    torch.cuda.synchronize()
-    launches = kernels.launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out, launches = run_counted(lambda: pipe.run_tables(g1, g2), kernels_of_path, label)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
     check(pipe.resolved_narrow_keys is expect_narrow,
           f"{label}: narrow_keys resolved {pipe.resolved_narrow_keys}, expected {expect_narrow}")
-    ran = {name for name, count in launches.items() if count > 0}
-    check(ran == kernels_of_path,
-          f"{label}: launched {sorted(ran)}, the path's kernels are {sorted(kernels_of_path)}")
-    ref = QueryPipeline(cfg, device="cpu").run_tables(
-        Table.from_numpy(r1, device="cpu"), Table.from_numpy(r2, device="cpu"))
+    same_table(out, QueryPipeline(cfg, device="cpu").run_tables(
+        Table.from_numpy(r1, device="cpu"), Table.from_numpy(r2, device="cpu")), label)
     rows = int(out.num_rows)
-    check(rows == int(ref.num_rows) and rows > 0, f"{label}: num_rows {rows} vs plain {int(ref.num_rows)}")
-    check(tuple(out.data.shape) == tuple(ref.data.shape), f"{label}: output shape differs")
-    check(torch.equal(out.data.cpu(), ref.data), f"{label}: output buffer differs from the plain path")
+    check(rows > 0, f"{label}: no rows")
     ms = host_ms(lambda: pipe.run_tables(g1, g2))
     log(f"slice {label}: {rows} rows equal to the plain path; launches {launches}; "
-        f"run_tables {ms:.3f} ms (median of 3)")
+        f"run_tables {ms:.3f} ms (median of 3); peak memory above the tables {peak:.2f} GB")
     return launches, ms, rows
+
+
+# The 1:1 hash join on int64 tables runs the fused path's kernels on 64-bit
+# hashes: its merge sort is the wide element and gathers both operands. The
+# hash inner join, the aggregate and the merge sort rows and sort keys with
+# payloads, and scan nothing.
+HASH_ONE_TO_ONE_KERNELS = FUSED_WIDE_KERNELS
+HASH_INNER_KERNELS = STAGED_KERNELS
+HASH_AGGREGATE_KERNELS = STAGED_KERNELS
+MERGE_KERNELS = {"hbm_sort_chunk", "hbm_sort_merge", "gather_rows"}
+RESUMABLE_KERNELS = FUSED_WIDE_KERNELS
+
+
+def hash_config(cfg):
+    import dataclasses
+
+    return dataclasses.replace(cfg, join_algorithm="hash")
+
+
+def phase_hash_shapes(r1, r2, cfg) -> dict:
+    """The kernels at the shapes the 1:1 hash join gives them at 10M
+    rows/table, each against its plain version on the card (exact): the
+    hash mixes of both filtered tables (torch ops; their time and bound),
+    the 20M merge sort of int64 hashes and int32 positions (the wide
+    element: phase A, phase B, whole, beside stable `torch.sort` of the
+    hashes), the join scans over those 20M int64 keys, the restore sort of
+    the core's 10M x 8 output (key: the table-1 row index, payload 7 int64
+    columns of its rows, zeros from num_out on) and the hash inner join's
+    10M row sort (`stable_key_sort_rows_with_key`: the wide element, one
+    column gather of the hashes, one row gather)."""
+    import torch
+
+    from pim_sort_merge_join_tpu_torch import Table
+    from pim_sort_merge_join_tpu_torch.ops import filter as filter_ops
+    from pim_sort_merge_join_tpu_torch.ops import hash_join as hj
+    from pim_sort_merge_join_tpu_torch.ops import join as join_ops
+    from pim_sort_merge_join_tpu_torch.ops.kernels import gather as gr
+    from pim_sort_merge_join_tpu_torch.ops.kernels import hbm_sort as hs
+    from pim_sort_merge_join_tpu_torch.ops.kernels import join_scan as js
+    from pim_sort_merge_join_tpu_torch.ops.sort import stable_key_sort_rows_with_key
+
+    t1, t2 = Table.from_numpy(r1), Table.from_numpy(r2)
+    f1 = filter_ops.apply_filter(t1, cfg.predicate1)
+    f2 = filter_ops.apply_filter(t2, cfg.predicate2)
+    cap1, n = f1.capacity, f1.capacity + f2.capacity
+    rec = {}
+    h1, h2 = hj._hashed_keys(f1, 0), hj._hashed_keys(f2, 0)
+    mix_want = hj._hashed_keys(Table(f1.data.cpu(), f1.num_rows.cpu(), f1.names), 0)
+    rec["hash_mix_err"] = max_abs_err((h1.cpu(),), (mix_want,))
+    rec["hash_mix_ms"] = time_ms(lambda _: (hj._hashed_keys(f1, 0), hj._hashed_keys(f2, 0)))
+    # Each table's key column read (a strided 8 bytes a row), the hash written.
+    rec["hash_mix_bound"] = bound(2 * nbytes(h1, h2), compares=12 * n)
+
+    keys = torch.cat([h1, h2])
+    pos = torch.arange(n, dtype=torch.int32, device="cuda")
+    check(hs.element_kind((keys, pos), 2) == hs.KIND_WIDE_I64, "hash merge sort: not the wide element")
+    time_sort(rec, "hash_merge_sort", (keys, pos), 2)
+    # Part of the whole sort's time: `element_kind` proves the second key to
+    # be arange(n) on the card, a host sync.
+    rec["element_kind_host_ms"] = host_ms(lambda: hs.element_kind((keys, pos), 2))
+    mkeys, mpos = hs.hbm_sort((keys, pos), 2)
+    time_scan(rec, "hash_", mkeys, mpos, cap1)
+
+    iota1 = torch.arange(cap1, dtype=torch.int32, device="cuda")
+    t1aug = Table(torch.cat([f1.data, iota1.to(f1.dtype)[:, None]], dim=1), f1.num_rows, ())
+    joined = join_ops._one_to_one_merged(t1aug, f2, 0, h1, h2)
+    num_out = joined.num_rows
+    j = torch.arange(joined.capacity, dtype=torch.int32, device="cuda")
+    restore = torch.where(j < num_out, joined.data[:, f1.ncol].to(torch.int32), cap1 + j)
+    keep = [c for c in range(joined.ncol) if c != f1.ncol]
+
+    def plain_sort_rows(parts, **kw):
+        return gr.gather_rows_plain(
+            [(rows, hs.hbm_sort_plain((key, torch.arange(key.shape[0], dtype=torch.int32,
+                                                         device=key.device)))[1], *cols)
+             for key, rows, *cols in parts], **kw)
+
+    def restore_rows(sort_rows):
+        return sort_rows([(restore, joined.data, keep)], live=num_out)
+
+    rec["restore_sort_err"] = max_abs_err((restore_rows(hs.hbm_sort_rows),),
+                                          (restore_rows(plain_sort_rows),))
+    rec["restore_sort_ms"] = time_ms(lambda _: restore_rows(hs.hbm_sort_rows))
+    rec["restore_sort_plain_ms"] = time_ms(lambda _: restore_rows(plain_sort_rows))
+    rec["restore_sort_library_ms"] = time_ms(lambda _: torch.sort(restore, stable=True))
+    live = int(num_out)
+    rec["restore_rows"], rec["restore_live"] = joined.capacity, live
+    rec["restore_sort_bound_ms"] = bound(nbytes(restore) + live * len(keep) * 8
+                                         + joined.capacity * len(keep) * 8)["bound_ms"]
+
+    def row_sort_plain():
+        perm = hs.hbm_sort_plain((h1, iota1))[1]
+        return h1[perm.long()], perm, gr.gather_rows_plain([(f1.data, perm)])
+
+    got, want = stable_key_sort_rows_with_key(h1, f1.data), row_sort_plain()
+    rec["hash_row_sort_err"] = max_abs_err(got, want)
+    rec["hash_row_sort_ms"] = time_ms(lambda _: stable_key_sort_rows_with_key(h1, f1.data))
+    rec["hash_row_sort_plain_ms"] = time_ms(lambda _: row_sort_plain())
+    rec["hash_row_sort_library_ms"] = time_ms(lambda _: torch.sort(h1, stable=True))
+    rec["hash_row_sort_bound_ms"] = bound(2 * nbytes(h1, f1.data) + nbytes(iota1))["bound_ms"]
+    torch.cuda.synchronize()
+    for key in ("hash_mix_err", "hash_merge_sort_err", "restore_sort_err", "hash_row_sort_err"):
+        check(rec[key] == 0, f"hash path shape {key} = {rec[key]}: kernel differs from plain")
+    log("hash path shapes (ms, kernel vs plain vs library): " + json.dumps(rec))
+    return rec
+
+
+def phase_operators() -> dict:
+    """`hash_aggregate` over a 10M table (the staged query's table 1:
+    uniform keys, about 0.3 rows a key) for each aggregate, and `merge_tree`
+    of 8 key-sorted runs of 1.25M rows (uniform keys) into one of 10M, on
+    the card against the plain path on CPU tensors, with their kernels and
+    times."""
+    import torch
+
+    from pim_sort_merge_join_tpu_torch import Table
+    from pim_sort_merge_join_tpu_torch.columnar.generate import generate_table
+    from pim_sort_merge_join_tpu_torch.ops import hash_join as hj
+    from pim_sort_merge_join_tpu_torch.ops import merge as merge_ops
+
+    rec = {}
+    rows = generate_table(10_000_000, seed=1, key_distribution="uniform")
+    g, c = Table.from_numpy(rows), Table.from_numpy(rows, device="cpu")
+    del rows
+    for agg in ("sum", "count", "min", "max"):
+        out, launches = run_counted(lambda: hj.hash_aggregate(g, 0, 1, agg), HASH_AGGREGATE_KERNELS,
+                                    f"hash_aggregate {agg}")
+        same_table(out, hj.hash_aggregate(c, 0, 1, agg), f"hash_aggregate {agg}")
+        rec[f"aggregate_{agg}"] = {"groups": int(out.num_rows), "launches": launches,
+                                   "ms": time_ms(lambda _: hj.hash_aggregate(g, 0, 1, agg))}
+    del g, c
+    runs_np = []
+    for i in range(8):
+        r = generate_table(1_250_000, seed=10 + i, key_distribution="uniform")
+        runs_np.append(r[np.argsort(r[:, 0], kind="stable")])
+    runs = [Table.from_numpy(r) for r in runs_np]
+    out, launches = run_counted(lambda: merge_ops.merge_tree(runs, 0), MERGE_KERNELS, "merge_tree")
+    want = merge_ops.merge_tree([Table.from_numpy(r, device="cpu") for r in runs_np], 0)
+    same_table(out, want, "merge_tree")
+    rec["merge_tree"] = {"rows": int(out.num_rows), "launches": launches,
+                         "ms": time_ms(lambda _: merge_ops.merge_tree(runs, 0))}
+    torch.cuda.synchronize()
+    log("operators (hash_aggregate 10M, merge_tree 8 runs to 10M; ms): " + json.dumps(rec))
+    return rec
+
+
+def phase_resumable() -> dict:
+    """`run_tables_resumable` at 2M rows/table into a temporary directory:
+    the first run saves the sorted and joined stages, a second pipeline
+    resumes from the sorted stage with zero tables of the same shape; both
+    equal the plain path's resumable run on CPU tensors."""
+    import dataclasses
+
+    import torch
+
+    from pim_sort_merge_join_tpu_torch import QueryPipeline, Table
+    from pim_sort_merge_join_tpu_torch.engine.checkpoint import StageCheckpointer, config_fingerprint
+
+    r1, r2, cfg = slice_inputs(2_000_000)
+    rec = {}
+    with tempfile.TemporaryDirectory() as d:
+        gcfg = dataclasses.replace(cfg, checkpoint_dir=os.path.join(d, "card"))
+        g1, g2 = Table.from_numpy(r1), Table.from_numpy(r2)
+        t0 = time.perf_counter()
+        out, rec["launches"] = run_counted(lambda: QueryPipeline(gcfg).run_tables_resumable(g1, g2),
+                                           RESUMABLE_KERNELS, "resumable run")
+        rec["run_ms"] = (time.perf_counter() - t0) * 1e3
+        stages = StageCheckpointer(gcfg.checkpoint_dir, config_fingerprint(gcfg)).completed_stages()
+        check(stages == ["sorted", "joined"], f"resumable run: stages {stages}")
+        zeros = Table.from_numpy(np.zeros_like(r1))
+        t0 = time.perf_counter()
+        again, rec["resume_launches"] = run_counted(
+            lambda: QueryPipeline(gcfg).run_tables_resumable(zeros, zeros), RESUMABLE_KERNELS,
+            "resumed run")
+        rec["resume_ms"] = (time.perf_counter() - t0) * 1e3
+        ccfg = dataclasses.replace(cfg, checkpoint_dir=os.path.join(d, "cpu"))
+        want = QueryPipeline(ccfg, device="cpu").run_tables_resumable(
+            Table.from_numpy(r1, device="cpu"), Table.from_numpy(r2, device="cpu"))
+        same_table(out, want, "resumable run")
+        same_table(again, want, "resumed run")
+        rec["rows"] = int(out.num_rows)
+    torch.cuda.synchronize()
+    log("resumable 2M (run, then resume from the sorted stage; host ms): " + json.dumps(rec))
+    return rec
+
+
+def phase_csv_debug_log() -> dict:
+    """The 100k CSV query with `debug_log` on: the ingest, filter, join and
+    materialize events, in that order, must agree with the tables and the
+    result."""
+    import torch
+
+    from pim_sort_merge_join_tpu_torch import EngineConfig, QueryPipeline
+    from pim_sort_merge_join_tpu_torch.columnar import csv_io
+    from pim_sort_merge_join_tpu_torch.columnar.generate import generate_table
+    from pim_sort_merge_join_tpu_torch.engine import logging as elog
+
+    buf = io.StringIO()
+    elog.configure(stream=buf)
+    rows1, rows2 = generate_table(100_000, seed=1), generate_table(100_000, seed=2)
+    with tempfile.TemporaryDirectory() as d:
+        p1, p2, po = (os.path.join(d, f) for f in ("data1.csv", "data2.csv", "result.csv"))
+        csv_io.write_csv(p1, rows1)
+        csv_io.write_csv(p2, rows2)
+        res = QueryPipeline(EngineConfig(debug_log=True)).run_csv(p1, p2, po)
+    torch.cuda.synchronize()
+    elog.get_logger().handlers.clear()
+    events = [json.loads(line) for line in buf.getvalue().splitlines() if line]
+    names = [e["event"] for e in events]
+    check(names == ["ingest", "filter", "join", "materialize"], f"debug_log events {names}")
+    by = {e["event"]: e for e in events}
+    rows = int(res.num_rows)
+    check(by["ingest"]["table1_rows"] == by["filter"]["table1_rows_in"] == 100_000,
+          "debug_log: ingest/filter row counts")
+    check(by["filter"]["table1_rows_out"] == int(np.sum(rows1[:, 0] > 5000))
+          and by["filter"]["table2_rows_out"] == int(np.sum(rows2[:, 0] > 5000)),
+          "debug_log: filter counts differ from the tables'")
+    check(by["join"]["rows_out"] == by["materialize"]["rows"] == rows > 0,
+          "debug_log: join/materialize counts differ from the result")
+    log(f"debug_log 100k CSV: events {names} agree with the {rows} result rows")
+    return by
+
+
+# The device names of the kernels in csrc/, as the profiler lists them.
+PORT_KERNEL_NAMES = ("run_sort_kernel", "merge_kernel", "gather_kernel", "gather_rows_kernel",
+                     "join_scan_", "bitonic_pass_kernel", "radix_")
 
 
 def phase_profile() -> None:
@@ -1221,8 +1488,10 @@ def phase_profile() -> None:
 
     from pim_sort_merge_join_tpu_torch import QueryPipeline, Table
 
-    for label, (r1, r2, cfg) in (("fused 10M", slice_inputs(10_000_000)),
-                                 ("staged inner 10M", staged_inputs(10_000_000, "auto"))):
+    r1, r2, cfg = slice_inputs(10_000_000)
+    for label, (r1, r2, cfg) in (("fused 10M", (r1, r2, cfg)),
+                                 ("staged inner 10M", staged_inputs(10_000_000, "auto")),
+                                 ("hash 1:1 10M", (r1, r2, hash_config(cfg)))):
         g1, g2, pipe = Table.from_numpy(r1), Table.from_numpy(r2), QueryPipeline(cfg)
         del r1, r2
         for _ in range(2):
@@ -1246,9 +1515,12 @@ def phase_profile() -> None:
         ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
         # The 14 longest, and the join scans wherever they rank.
         top = ranked[:14] + [kv for kv in ranked[14:] if "join_scan" in kv[0]]
+        ours = sum(t for name, (t, _) in by_name.items()
+                   if any(k in name for k in PORT_KERNEL_NAMES))
         log(f"profile {label}: host {host_ms:.3f} ms under the profiler; device span "
             f"{(end - start) / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms "
-            f"({100 * (1 - busy / (end - start)):.1f}% idle), {len(on_card)} device activities; "
+            f"({100 * (1 - busy / (end - start)):.1f}% idle; the port's kernels {ours / 1e3:.3f} ms, "
+            f"torch ops {(busy - ours) / 1e3:.3f} ms), {len(on_card)} device activities; "
             f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         for name, (t, c) in top:
             log(f"  {t / 1e3:8.3f} ms  x{c:<4d} {name[:100]}")
@@ -1303,6 +1575,24 @@ def main() -> int:
     launches_b, msb, rowsb = phase_slice(b1, b2, bcfg, expect_narrow=True,
                                          label="staged inner 2M bitonic",
                                          kernels_of_path=STAGED_BITONIC_KERNELS)
+    del b1, b2
+    r1, r2, cfg = slice_inputs(10_000_000)
+    phase_hash_shapes(r1, r2, cfg)
+    torch.cuda.empty_cache()
+    _, msh, rowsh = phase_slice(r1, r2, hash_config(cfg), expect_narrow=True, label="hash 1:1 10M",
+                                kernels_of_path=HASH_ONE_TO_ONE_KERNELS)
+    del r1, r2
+    torch.cuda.empty_cache()
+    a1, a2, acfg = staged_inputs(10_000_000, "auto")
+    _, mshi, rowshi = phase_slice(a1, a2, hash_config(acfg), expect_narrow=True,
+                                  label="hash inner 10M", kernels_of_path=HASH_INNER_KERNELS)
+    check(rowshi == rowsa, f"hash inner 10M: {rowshi} rows, the sort-merge inner join {rowsa}")
+    del a1, a2
+    torch.cuda.empty_cache()
+    phase_operators()
+    torch.cuda.empty_cache()
+    phase_resumable()
+    phase_csv_debug_log()
 
     src = "pim_sort_merge_join_tpu_torch/csrc/"
     ref = "pim_sort_merge_join_tpu/ops/pallas/"
@@ -1333,7 +1623,7 @@ def main() -> int:
                     *(v["err"] for k, v in shapes.items() if k.startswith("rows_")))
     kernels = [
         entry("hbm_sort_chunk", "hbm_sort.cu", "hbm_sort.py:286", launches["hbm_sort_chunk"],
-              sort_err, chunk["ms"], shapes["merge_sort_plain_ms"], chunk),
+              sort_err, chunk["ms"], shapes["merge_sort_plain_ms"], chunk, chunk["library_ms"]),
         # All merge passes of the 20M merge sort; the library call sorts the
         # same run-sorted elements.
         entry("hbm_sort_merge", "hbm_sort.cu", "hbm_sort.py:463", launches["hbm_sort_merge"],
@@ -1370,7 +1660,8 @@ def main() -> int:
          "plain_n": lsd["head_n"], "head_ms": lsd["head_ms"]},
     ]
     log(f"slice 10M: {rows10} rows in {ms10:.3f} ms; staged inner 10M: {rowsa} rows in "
-        f"{msa:.3f} ms; staged inner 2M bitonic: {rowsb} rows in {msb:.3f} ms")
+        f"{msa:.3f} ms; staged inner 2M bitonic: {rowsb} rows in {msb:.3f} ms; hash 1:1 10M: "
+        f"{rowsh} rows in {msh:.3f} ms; hash inner 10M: {rowshi} rows in {mshi:.3f} ms")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

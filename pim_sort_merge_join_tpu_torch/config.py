@@ -1,8 +1,8 @@
 """Runtime engine configuration (PyTorch port of `pim_sort_merge_join_tpu/config.py`).
 
 The field set and defaults equal the JAX package's `EngineConfig`, so a
-config carries across unchanged (`convert.config_from_reference`). Values
-that select a path this port does not have yet raise `NotImplementedError`
+config carries across unchanged (`convert.config_from_reference`). A float
+``dtype``, which the port does not carry yet, raises `NotImplementedError`
 naming the ROADMAP item that brings it.
 """
 
@@ -30,12 +30,6 @@ class Predicate:
 
     def describe(self) -> str:
         return f"col{self.col + 1} {self.op} {self.value}"
-
-
-# Values the port does not support yet, and where ROADMAP.md tracks them.
-_UNSUPPORTED = {
-    "join_algorithm": ("hash", 'ROADMAP, "The other single-chip operators"'),
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,17 +81,6 @@ class EngineConfig:
                 raise ValueError(
                     f"{name} must be True, False, or 'auto' (got {val!r})"
                 )
-        for name, (bad, item) in _UNSUPPORTED.items():
-            if getattr(self, name) == bad:
-                raise NotImplementedError(f"{name}={bad!r}: not ported yet, {item}")
-        if self.debug_log:
-            raise NotImplementedError(
-                "debug_log: not ported yet, ROADMAP, \"The native CSV shim and the launcher\""
-            )
-        if self.checkpoint_dir is not None:
-            raise NotImplementedError(
-                "checkpoint_dir: not ported yet, ROADMAP, \"Checkpoint/resume\""
-            )
 
     def torch_dtype(self) -> torch.dtype:
         return TORCH_DTYPES[self.dtype]

@@ -2,10 +2,12 @@
 
 `pipeline_core` is the filter -> sort -> join dataflow: fused for the
 sort-merge 1:1 join, staged (compact, sort each table, join) for the
-sort-merge inner join. `QueryPipeline` drives it on tables (`run_tables`,
-with the device narrow probe) or on CSV paths (`run_csv`). PyTorch runs
-eagerly, so there is no compile cache. Hash joins and resumable runs come
-later (ROADMAP, "The other single-chip operators" and "Checkpoint/resume").
+sort-merge inner join, compact then hash join for ``join_algorithm="hash"``.
+`QueryPipeline` drives it on tables (`run_tables`, with the device narrow
+probe), on CSV paths (`run_csv`) or stage by stage with checkpoints
+(`run_tables_resumable`); ``debug_log`` sends its stage events through
+`engine/logging.log_event`. PyTorch runs eagerly, so there is no compile
+cache.
 """
 
 from __future__ import annotations
@@ -19,22 +21,20 @@ from pim_sort_merge_join_tpu_torch.columnar import csv_io
 from pim_sort_merge_join_tpu_torch.columnar.table import Table
 from pim_sort_merge_join_tpu_torch.config import EngineConfig
 from pim_sort_merge_join_tpu_torch.device import resolve_device
+from pim_sort_merge_join_tpu_torch.engine.checkpoint import StageCheckpointer, config_fingerprint
 from pim_sort_merge_join_tpu_torch.engine.errors import JoinOverflowError
+from pim_sort_merge_join_tpu_torch.engine.logging import log_event
 from pim_sort_merge_join_tpu_torch.engine.metrics import MetricsCollector
 from pim_sort_merge_join_tpu_torch.ops import filter as filter_ops
 from pim_sort_merge_join_tpu_torch.ops import join as join_ops
 from pim_sort_merge_join_tpu_torch.ops import sort as sort_ops
+from pim_sort_merge_join_tpu_torch.ops.hash_join import hash_join
 from pim_sort_merge_join_tpu_torch.utils import validate
 
 
 def pipeline_core(t1: Table, t2: Table, config: EngineConfig) -> Table:
     """The filter -> sort -> join dataflow on two tables of one device."""
-    if config.join_algorithm != "sort_merge":
-        raise NotImplementedError(
-            f"join_algorithm={config.join_algorithm!r}: not ported yet "
-            "(ROADMAP, \"The other single-chip operators\")"
-        )
-    if config.join_mode == "one_to_one":
+    if config.join_algorithm == "sort_merge" and config.join_mode == "one_to_one":
         # Fused path: filtering is a key mask and the join's slot-permutation
         # sorts subsume the standalone compaction and table sorts.
         m1 = filter_ops.predicate_mask(t1, config.predicate1)
@@ -47,6 +47,17 @@ def pipeline_core(t1: Table, t2: Table, config: EngineConfig) -> Table:
         )
     f1 = filter_ops.apply_filter(t1, config.predicate1)
     f2 = filter_ops.apply_filter(t2, config.predicate2)
+    if config.join_algorithm == "hash":
+        # The hash join orders itself in hash space, so it comes before the
+        # sort stage. Its rows are in table-1 filtered-row order, not key
+        # order; it takes no narrow keys.
+        out_cap = None
+        if config.join_mode == "inner":
+            out_cap = int(t1.capacity * config.join_slack)
+        return hash_join(
+            f1, f2, config.join_key1, config.join_key2,
+            mode=config.join_mode, out_capacity=out_cap,
+        )
     s1 = sort_ops.sort_by_key(
         f1, config.join_key1, algorithm=config.sort_algorithm,
         narrow=config.narrow_keys is True,
@@ -115,6 +126,33 @@ class QueryPipeline:
         data_fit = bool(dlo >= info.min and dhi < info.max)
         return keys_fit, data_fit
 
+    def _check_devices(self, *tables: Table) -> None:
+        for t in tables:
+            if t.device.type != self.device.type:
+                raise ValueError(f"table on {t.device}, pipeline on {self.device}")
+
+    def _debug_filter_counts(self, t1: Table, t2: Table) -> None:
+        """The ``filter`` event of ``debug_log``: each table's rows before
+        and after its predicate, from one readback. The fused path never
+        counts its survivors otherwise, so this costs a pass over each
+        table, and only when the option is on."""
+        cfg = self.config
+        counts = torch.stack([
+            t1.num_rows,
+            filter_ops.predicate_mask(t1, cfg.predicate1).sum(dtype=torch.int32),
+            t2.num_rows,
+            filter_ops.predicate_mask(t2, cfg.predicate2).sum(dtype=torch.int32),
+        ]).tolist()
+        log_event(
+            "filter",
+            table1_rows_in=counts[0],
+            table1_rows_out=counts[1],
+            table2_rows_in=counts[2],
+            table2_rows_out=counts[3],
+            predicate1=cfg.predicate1.describe(),
+            predicate2=cfg.predicate2.describe(),
+        )
+
     def run_tables(
         self,
         t1: Table,
@@ -123,9 +161,7 @@ class QueryPipeline:
         narrow: bool | None = None,
         narrow_data: bool | None = None,
     ) -> Table:
-        for t in (t1, t2):
-            if t.device.type != self.device.type:
-                raise ValueError(f"table on {t.device}, pipeline on {self.device}")
+        self._check_devices(t1, t2)
         if narrow is None or narrow_data is None:
             need_probe = (narrow is None and self.config.narrow_keys == "auto") or (
                 narrow_data is None and self.config.narrow_data == "auto"
@@ -148,9 +184,18 @@ class QueryPipeline:
         cfg = dataclasses.replace(
             self.config, narrow_keys=bool(narrow), narrow_data=bool(narrow_data)
         )
+        if self.config.debug_log:
+            self._debug_filter_counts(t1, t2)
         with self.metrics.stage("execute") as m:
             result = pipeline_core(t1, t2, cfg)
             m.rows_out = int(result.num_rows)  # waits for the device
+        if self.config.debug_log:
+            log_event(
+                "join",
+                rows_out=m.rows_out,
+                output_capacity=result.capacity,
+                overflow_headroom=result.capacity - m.rows_out,
+            )
         # Inner joins report the true match count in num_rows even past the
         # output capacity (ops/join.merge_join_inner); rows beyond the
         # capacity were dropped, so raise instead of truncating silently.
@@ -172,6 +217,14 @@ class QueryPipeline:
             rows1 = csv_io.load_csv_numpy(path1, dtype=np.int64)
             rows2 = csv_io.load_csv_numpy(path2, dtype=np.int64)
             m.rows_in = rows1.shape[0] + rows2.shape[0]
+        if self.config.debug_log:
+            log_event(
+                "ingest",
+                table1_rows=rows1.shape[0],
+                table2_rows=rows2.shape[0],
+                table1_bytes=rows1.nbytes,
+                table2_bytes=rows2.nbytes,
+            )
         if np_dtype.itemsize < 8:
             validate.check_dtype_range(rows1, np_dtype, path1)
             validate.check_dtype_range(rows2, np_dtype, path2)
@@ -205,7 +258,50 @@ class QueryPipeline:
                 csv_io.write_csv(output_path, out, names=result.names)
                 m.rows_out = out.shape[0]
                 m.bytes_moved = out.nbytes
+            if self.config.debug_log:
+                log_event("materialize", rows=out.shape[0], bytes=out.nbytes, path=output_path)
         return result
 
     def metrics_json(self) -> str:
         return self.metrics.to_json()
+
+    def run_tables_resumable(self, t1: Table, t2: Table) -> Table:
+        """Execution checkpointed at stage boundaries (``checkpoint_dir``).
+
+        Stage ``sorted`` filters and sorts both tables and saves them; stage
+        ``joined`` joins them with `merge_join` and saves the result. A
+        rerun with the same config resumes after the last completed stage.
+        As in the reference, this path sorts and merges whatever
+        ``join_algorithm`` says, and resolves no narrow keys or data.
+        Without ``checkpoint_dir`` it is `run_tables`.
+        """
+        cfg = self.config
+        if cfg.checkpoint_dir is None:
+            return self.run_tables(t1, t2)
+        self._check_devices(t1, t2)
+        ckpt = StageCheckpointer(cfg.checkpoint_dir, config_fingerprint(cfg))
+        if ckpt.has("sorted"):
+            s1 = ckpt.load_table("sorted", "t1", device=self.device)
+            s2 = ckpt.load_table("sorted", "t2", device=self.device)
+        else:
+            with self.metrics.stage("filter_sort"):
+                s1, s2 = (
+                    sort_ops.sort_by_key(
+                        filter_ops.apply_filter(t, pred), key, algorithm=cfg.sort_algorithm
+                    )
+                    for t, pred, key in ((t1, cfg.predicate1, cfg.join_key1),
+                                         (t2, cfg.predicate2, cfg.join_key2))
+                )
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            ckpt.save("sorted", t1=s1, t2=s2)
+        with self.metrics.stage("join") as m:
+            out_cap = None
+            if cfg.join_mode == "inner":
+                out_cap = int(t1.capacity * cfg.join_slack)
+            result = join_ops.merge_join(
+                s1, s2, cfg.join_key1, cfg.join_key2, mode=cfg.join_mode, out_capacity=out_cap,
+            )
+            m.rows_out = int(result.num_rows)
+        ckpt.save("joined", result=result)
+        return result

@@ -314,37 +314,46 @@ def merge_join_inner(
     ``num_rows``, so callers can detect overflow (num_rows > capacity).
     """
     info = _match_info(t1, t2, key1, key2)
-    dev = t1.device
     cnt = torch.where(t1.valid_mask(), info.cnt2, 0)
     starts = torch.cumsum(cnt, 0, dtype=torch.int32) - cnt  # exclusive prefix
     total = cnt.sum(dtype=torch.int32)
     out_cap = t1.capacity if out_capacity is None else out_capacity
-    j = torch.arange(out_cap, dtype=torch.int32, device=dev)
-    # Output slot j belongs to the last table-1 row i with starts[i] <= j.
-    # Rows with matches have strictly increasing starts, so placing (i,
-    # starts[i]) at slot starts[i] and broadcasting each placed slot over
-    # the slots up to the next covers every live slot (the reference
-    # scatters and takes a running max). Dead rows, and rows that start
-    # past the capacity, go to spare slots of their own that are cut off
-    # (the reference's scatter mode="drop"). Slot 0 always starts a run:
-    # the first row with matches starts there, and with none the
-    # reference's running max is 0 everywhere.
+    src1, offset = _slot_owners(cnt, starts, out_cap)
+    src2 = info.lo2[src1.long()] + offset
+    # Slots past `total` hold the last row's values, but they are invalid.
+    return _emit(t1, t2, key2, src1, src2, total)
+
+
+def _slot_owners(cnt: torch.Tensor, starts: torch.Tensor, out_cap: int):
+    """For each of ``out_cap`` output slots ``j``: the last row ``i`` with
+    ``starts[i] <= j`` among the rows with matches (``cnt > 0``), and ``j -
+    starts[i]``; both int32.
+
+    Rows with matches have strictly increasing starts, so placing ``(i,
+    starts[i])`` at slot ``starts[i]`` and broadcasting each placed slot
+    over the slots up to the next covers every live slot (the reference
+    scatters and takes a running max, ``lax.cummax``, which on the card is
+    ~85x slower than this broadcast). Dead rows, and rows that start past
+    the capacity, go to spare slots of their own that are cut off (the
+    reference's scatter ``mode="drop"``). Slot 0 always starts a run: the
+    first row with matches starts there, and with none the reference's
+    running max is 0 everywhere.
+    """
+    n = starts.shape[0]
+    dev = starts.device
     has = cnt > 0
-    i1 = torch.arange(t1.capacity, dtype=torch.int32, device=dev)
+    i1 = torch.arange(n, dtype=torch.int32, device=dev)
     slot = torch.where(has & (starts < out_cap), starts, out_cap + i1).long()
-    placed = torch.zeros(out_cap + t1.capacity, dtype=torch.bool, device=dev)
+    placed = torch.zeros(out_cap + n, dtype=torch.bool, device=dev)
     placed = placed.index_fill_(0, slot, True)[:out_cap]
     placed[:1] = True
 
     def broadcast(vals: torch.Tensor) -> torch.Tensor:
-        buf = torch.zeros(out_cap + t1.capacity, dtype=torch.int32, device=dev)
+        buf = torch.zeros(out_cap + n, dtype=torch.int32, device=dev)
         return _head_broadcast(placed, buf.index_copy_(0, slot, vals)[:out_cap])
 
-    src1 = broadcast(i1)
-    start_of = broadcast(starts)
-    src2 = info.lo2[src1.long()] + (j - start_of)
-    # Slots past `total` hold the last row's values, but they are invalid.
-    return _emit(t1, t2, key2, src1, src2, total)
+    j = torch.arange(out_cap, dtype=torch.int32, device=dev)
+    return broadcast(i1), j - broadcast(starts)
 
 
 def merge_join(

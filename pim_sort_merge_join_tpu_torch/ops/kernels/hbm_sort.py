@@ -310,6 +310,25 @@ def sort_permutation(key: torch.Tensor) -> torch.Tensor:
     return sort_elements(key, key, kind)[1]
 
 
+def sort_key_permutation(key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(sorted key, stable permutation int32)`` of a 1D int32/int64 key.
+
+    On a CUDA tensor kernels 1 and 2 sort it; an int32 key leaves the last
+    pass sorted (packed-32), an int64 key is taken by the permutation in one
+    column-gather launch. On a CPU tensor `hbm_sort_plain`.
+    """
+    if key.device.type == "cpu":
+        perm = sort_permutation(key)
+        return key[perm.long()], perm
+    if key.device.type != "cuda":
+        raise ValueError(f"hbm_sort: unsupported device {key.device}")
+    kind = element_kind((key,), 1)
+    if key.shape[0] == 0:
+        return key, torch.empty(0, dtype=torch.int32, device=key.device)
+    first, perm = sort_elements(key, key, kind)
+    return (gather(perm, (key,))[0] if first is None else first), perm
+
+
 def hbm_sort_rows(parts, *, out=None, live=None) -> torch.Tensor:
     """Tables' rows in the stable order of their keys, side by side.
 

@@ -17,7 +17,11 @@ import torch
 from pim_sort_merge_join_tpu_torch.columnar.table import Table
 from pim_sort_merge_join_tpu_torch.ops.kernels.bitonic_sort import sort_pairs
 from pim_sort_merge_join_tpu_torch.ops.kernels.gather import gather_rows
-from pim_sort_merge_join_tpu_torch.ops.kernels.hbm_sort import hbm_sort, hbm_sort_rows
+from pim_sort_merge_join_tpu_torch.ops.kernels.hbm_sort import (
+    hbm_sort,
+    hbm_sort_rows,
+    sort_key_permutation,
+)
 
 _ALGORITHMS = ("auto", "xla", "hbm_pallas", "hbm_adaptive", "pallas_bitonic")
 
@@ -111,6 +115,14 @@ def stable_key_sort_rows(
     if algorithm not in _ALGORITHMS:
         raise ValueError(f"unknown sort algorithm {algorithm!r}")
     return hbm_sort_rows(parts, out=out, live=live)
+
+
+def stable_key_sort_rows_with_key(key: torch.Tensor, rows: torch.Tensor, cols=None):
+    """`stable_key_sort_rows` of one table that also returns the sorted key
+    and the sorting permutation: ``(sorted key, permutation int32, rows)``,
+    the rows' columns ``cols`` (all if None) in the key's stable order."""
+    skey, perm = sort_key_permutation(key)
+    return skey, perm, gather_rows([(rows, perm, cols)])
 
 
 def sorted_keys(table: Table, key: int) -> torch.Tensor:

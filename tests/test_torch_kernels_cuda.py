@@ -572,3 +572,122 @@ def test_kernels_refuse_what_they_cannot_take(cuda):
         gr.gather_rows([(torch.zeros((16, 4), dtype=torch.int64, device=cuda), idx.cpu())])
     with pytest.raises(ValueError, match="shape"):
         hs.gather(idx, (k,)[:1] + (k[:8],))
+
+
+@pytest.mark.parametrize("join_mode", ["one_to_one", "inner"])
+@pytest.mark.parametrize("dtype", ["int64", "int32"])
+def test_hash_join_paths_on_card_match_cpu(cuda, monkeypatch, join_mode, dtype):
+    """`join_algorithm="hash"` through `run_tables`: each mode launches
+    exactly its kernel set, never reaches `cummax`, and equals the plain
+    path's buffer."""
+    import dataclasses
+
+    import chip_smoke
+    from pim_sort_merge_join_tpu_torch import QueryPipeline, Table
+    from pim_sort_merge_join_tpu_torch.ops import kernels
+
+    if join_mode == "inner":
+        r1, r2, cfg = chip_smoke.staged_inputs(30_000, "auto")
+    else:
+        r1, r2, cfg = chip_smoke.slice_inputs(30_000)
+    cfg = dataclasses.replace(chip_smoke.hash_config(cfg), dtype=dtype)
+    tdt = torch.int32 if dtype == "int32" else torch.int64
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("cummax/cummin reached on a CUDA hash path")
+
+    monkeypatch.setattr(torch, "cummax", refuse)
+    monkeypatch.setattr(torch, "cummin", refuse)
+    kernels.reset_launch_counts()
+    got = QueryPipeline(cfg, device=cuda).run_tables(
+        Table.from_numpy(r1, device=cuda, dtype=tdt), Table.from_numpy(r2, device=cuda, dtype=tdt))
+    ran = {name for name, n in kernels.launch_counts().items() if n > 0}
+    if join_mode == "inner":
+        assert ran == chip_smoke.HASH_INNER_KERNELS
+    elif dtype == "int64":
+        assert ran == chip_smoke.HASH_ONE_TO_ONE_KERNELS
+    else:  # int32 hashes: the merge sort carries both operands in its element
+        assert ran == chip_smoke.FUSED_KERNELS
+    monkeypatch.undo()
+    want = QueryPipeline(cfg, device="cpu").run_tables(
+        Table.from_numpy(r1, device="cpu", dtype=tdt), Table.from_numpy(r2, device="cpu", dtype=tdt))
+    assert got.data.dtype == want.data.dtype == tdt
+    assert torch.equal(got.data.cpu(), want.data)
+    assert int(got.num_rows) == int(want.num_rows) > 0
+
+
+@pytest.mark.parametrize("agg", ["sum", "count", "min", "max"])
+def test_hash_aggregate_on_card_matches_cpu(cuda, agg):
+    import chip_smoke
+    from pim_sort_merge_join_tpu_torch import Table
+    from pim_sort_merge_join_tpu_torch.columnar.generate import generate_table
+    from pim_sort_merge_join_tpu_torch.ops import hash_join as hj
+    from pim_sort_merge_join_tpu_torch.ops import kernels
+
+    rows = generate_table(50_000, seed=3, key_distribution="zipf")
+    rows[::7, 1] = np.iinfo(np.int64).max - rows[::7, 1]  # sums that wrap
+    kernels.reset_launch_counts()
+    got = hj.hash_aggregate(Table.from_numpy(rows, capacity=50_100, device=cuda), 0, 1, agg)
+    assert {n for n, c in kernels.launch_counts().items() if c} == chip_smoke.HASH_AGGREGATE_KERNELS
+    want = hj.hash_aggregate(Table.from_numpy(rows, capacity=50_100, device="cpu"), 0, 1, agg)
+    assert torch.equal(got.data.cpu(), want.data) and int(got.num_rows) == int(want.num_rows) > 0
+
+
+def test_merge_tree_on_card_matches_cpu(cuda):
+    import chip_smoke
+    from pim_sort_merge_join_tpu_torch import Table
+    from pim_sort_merge_join_tpu_torch.ops import kernels
+    from pim_sort_merge_join_tpu_torch.ops import merge as merge_ops
+
+    rng = np.random.default_rng(77)
+    runs = []
+    for i in range(9):
+        r = rng.integers(0, 500, (3000 + 1000 * i, 4))
+        runs.append(r[np.argsort(r[:, 0], kind="stable")])
+    for count in (1, 2, 8, 9):
+        kernels.reset_launch_counts()
+        got = merge_ops.merge_tree([Table.from_numpy(r, capacity=len(r) + 5, device=cuda)
+                                    for r in runs[:count]], 0)
+        ran = {n for n, c in kernels.launch_counts().items() if c}
+        assert ran == (set() if count == 1 else chip_smoke.MERGE_KERNELS)
+        want = merge_ops.merge_tree([Table.from_numpy(r, capacity=len(r) + 5, device="cpu")
+                                     for r in runs[:count]], 0)
+        assert torch.equal(got.data.cpu(), want.data) and int(got.num_rows) == int(want.num_rows)
+
+
+def test_resumable_on_card_matches_cpu(cuda, tmp_path):
+    import dataclasses
+
+    import chip_smoke
+    from pim_sort_merge_join_tpu_torch import QueryPipeline, Table
+    from pim_sort_merge_join_tpu_torch.ops import kernels
+
+    r1, r2, cfg = chip_smoke.slice_inputs(40_000)
+    gcfg = dataclasses.replace(cfg, checkpoint_dir=str(tmp_path / "card"))
+    ccfg = dataclasses.replace(cfg, checkpoint_dir=str(tmp_path / "cpu"))
+    want = QueryPipeline(ccfg, device="cpu").run_tables_resumable(
+        Table.from_numpy(r1, device="cpu"), Table.from_numpy(r2, device="cpu"))
+    zeros = Table.from_numpy(np.zeros_like(r1), device=cuda)
+    for t1, t2 in ((Table.from_numpy(r1, device=cuda), Table.from_numpy(r2, device=cuda)),
+                   (zeros, zeros)):
+        kernels.reset_launch_counts()
+        got = QueryPipeline(gcfg, device=cuda).run_tables_resumable(t1, t2)
+        assert {n for n, c in kernels.launch_counts().items() if c} == chip_smoke.RESUMABLE_KERNELS
+        assert got.data.device.type == "cuda"
+        assert torch.equal(got.data.cpu(), want.data) and int(got.num_rows) == int(want.num_rows) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_sort_key_permutation_on_card_matches_cpu(cuda, dtype):
+    from pim_sort_merge_join_tpu_torch.ops.kernels import hbm_sort as hs
+
+    rng = np.random.default_rng(78)
+    info = torch.iinfo(dtype)
+    for n in (0, 1, 8191, 8193, 100_003):
+        key = torch.from_numpy(rng.integers(info.min, info.max, n, endpoint=True)).to(dtype)
+        if n > 3:
+            key[: n // 3] = key[n // 2: n // 2 + n // 3]  # repeated keys
+        got = hs.sort_key_permutation(key.to(cuda))
+        want = hs.sort_key_permutation(key)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g.cpu(), w)

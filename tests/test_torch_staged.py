@@ -380,10 +380,9 @@ def test_staged_configs_construct_and_carry_across():
         assert cfg == EngineConfig(**kw)
         for name, value in kw.items():
             assert getattr(cfg, name) == value
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EngineConfig(join_algorithm="hash")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        config_from_reference(smj.EngineConfig(join_algorithm="hash", join_mode="inner"))
+    hashed = config_from_reference(smj.EngineConfig(join_algorithm="hash", join_mode="inner"))
+    assert hashed == EngineConfig(join_algorithm="hash", join_mode="inner")
+    assert (hashed.join_algorithm, hashed.join_mode) == ("hash", "inner")
 
 
 def test_staged_plain_path_launches_no_kernel():

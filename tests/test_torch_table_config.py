@@ -109,8 +109,17 @@ def test_resolve_narrow_matches_reference(k1, k2):
     ],
 )
 def test_unported_config_values_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EngineConfig(**kw)
+    """Float dtypes are still refused, naming their ROADMAP item; the hash
+    join, checkpoint directory and debug log are ported and construct, and
+    carry across from the JAX config unchanged."""
+    if kw.get("dtype") == "float64":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            EngineConfig(**kw)
+        return
+    cfg = EngineConfig(**kw)
+    for name, value in kw.items():
+        assert getattr(cfg, name) == value
+    assert config_from_reference(JConfig(**kw)) == cfg
 
 
 def test_invalid_narrow_value_raises():
