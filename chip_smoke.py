@@ -4,10 +4,11 @@ Usage, from the root of a checkout, on a machine with an NVIDIA H100 and
 the CUDA toolkit:
 
     python3 chip_smoke.py            # every phase below
-    python3 chip_smoke.py --profile  # the fused 10M, staged 10M and 1:1
-                                     # hash 10M queries under
-                                     # torch.profiler: busy time, launches
-                                     # and the top kernels
+    python3 chip_smoke.py --profile  # the fused 10M, staged 10M, 1:1 hash
+                                     # 10M and uint64 fused 10M queries
+                                     # under torch.profiler: busy time,
+                                     # launches, the top kernels; no
+                                     # torch.equal
 
 Phases, in order; any failure exits non-zero:
   1. card details (nvidia-smi, torch, CUDA, nvcc);
@@ -53,7 +54,22 @@ Phases, in order; any failure exits non-zero:
      8 sorted runs to 10M rows, `run_tables_resumable` at 2M rows/table
      (run, then resume from the saved sorted stage) and the 100k CSV query
      with `debug_log` on, whose events must agree with the result; each
-     against the plain path on CPU tensors.
+     against the plain path on CPU tensors;
+ 10. the other element types at 10M rows/table on the int64 queries'
+     kernels: the fused 1:1 query on uint64 tables (keys + 2^63, predicate
+     + 2^63) and on float64 tables, the 1:1 hash join on the float64
+     tables, the staged inner join on uint64 tables (path A's, keys +
+     2^63), each equal to its int64 query's rows with the same key shift;
+ 11. `run_csv` at 10M rows/table from CSV files written by the native
+     formatter, stage by stage (the native parser must have read them),
+     and the native parse beside the numpy one;
+ 12. small tables of edge keys (±0.0, ±inf, NaN, subnormals, the unsigned
+     extremes, 2^63 ± 1) through the filter, both table sorts,
+     `stable_key_sort`, every join path, `hash_aggregate` and
+     `merge_sorted`, equal to the plain path on CPU tensors;
+ 13. the command line (`runner.cli run`: default, ``--dtype float64``,
+     ``--join-algorithm hash``, ``--profile``) and the launcher
+     (`runner.run`) as subprocesses on the 100k pair, every output equal.
 Each path runs with the launch counts set to 0 just before and read just
 after: exactly the kernels of that path must have run.
 
@@ -688,10 +704,12 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def time_sort(rec: dict, name: str, ops: tuple, num_keys: int) -> None:
-    """One main-path sort: the whole `hbm_sort` against its plain version
-    (exact), phase A and phase B alone, and stable `torch.sort` of the key
-    alone as the library's time."""
+def time_sort(rec: dict, name: str, ops: tuple, num_keys: int, whole=None, inputs=None) -> None:
+    """One main-path sort: the whole sort against `hbm_sort_plain` of
+    ``ops`` (exact), phase A and phase B alone, and stable `torch.sort` of
+    the key alone as the library's time. ``whole`` is the path's call
+    (`hbm_sort` of ``ops`` by default) and ``inputs`` what it reads
+    (``ops``); the bound reads those once and writes its result once."""
     import torch
 
     from pim_sort_merge_join_tpu_torch.ops.kernels import hbm_sort as hs
@@ -699,8 +717,10 @@ def time_sort(rec: dict, name: str, ops: tuple, num_keys: int) -> None:
     n = ops[0].shape[0]
     kind = hs.element_kind(ops, num_keys)
     k0, k1 = hs.key_operands(ops, kind)
-    rec[f"{name}_err"] = max_abs_err(hs.hbm_sort(ops, num_keys), hs.hbm_sort_plain(ops, num_keys))
-    rec[f"{name}_ms"] = time_ms(lambda _: hs.hbm_sort(ops, num_keys))
+    sort = whole or (lambda _=None: hs.hbm_sort(ops, num_keys))
+    got = sort()
+    rec[f"{name}_err"] = max_abs_err(got, hs.hbm_sort_plain(ops, num_keys))
+    rec[f"{name}_ms"] = time_ms(sort)
     rec[f"{name}_plain_ms"] = time_ms(lambda _: hs.hbm_sort_plain(ops, num_keys))
     rec[f"{name}_library_ms"] = time_ms(lambda _: torch.sort(ops[0], stable=True))
     rec[f"{name}_phase_a_ms"] = time_ms(lambda _: hs.chunk_sort(k0, k1, kind))
@@ -709,7 +729,7 @@ def time_sort(rec: dict, name: str, ops: tuple, num_keys: int) -> None:
         lambda kv: hs.merge_passes(*kv, kind, n),
         setup=lambda: tuple(None if t is None else t.clone() for t in runs),
     )
-    rec[f"{name}_bound_ms"] = bound(2 * nbytes(*ops))["bound_ms"]
+    rec[f"{name}_bound_ms"] = bound(nbytes(*(ops if inputs is None else inputs)) + nbytes(*got))["bound_ms"]
 
 
 def time_scan(rec: dict, prefix: str, mkeys, mpos, cap1: int) -> None:
@@ -754,9 +774,7 @@ def wide_merged_keys():
     sent = key_sentinel(t1.dtype)
     k1 = torch.where(filter_ops.predicate_mask(t1, cfg.predicate1), t1.data[:, 0], sent)
     k2 = torch.where(filter_ops.predicate_mask(t2, cfg.predicate2), t2.data[:, 0], sent)
-    n = t1.capacity + t2.capacity
-    pos = torch.arange(n, dtype=torch.int32, device="cuda")
-    mkeys, mpos = hs.hbm_sort((torch.cat([k1, k2]), pos), 2)
+    mkeys, mpos = hs.sort_key_permutation(torch.cat([k1, k2]))
     return mkeys, mpos, t1.capacity
 
 
@@ -1273,9 +1291,9 @@ def phase_hash_shapes(r1, r2, cfg) -> dict:
     """The kernels at the shapes the 1:1 hash join gives them at 10M
     rows/table, each against its plain version on the card (exact): the
     hash mixes of both filtered tables (torch ops; their time and bound),
-    the 20M merge sort of int64 hashes and int32 positions (the wide
-    element: phase A, phase B, whole, beside stable `torch.sort` of the
-    hashes), the join scans over those 20M int64 keys, the restore sort of
+    the 20M merge sort of int64 hashes (`sort_key_permutation`: the wide
+    element and one column gather; phase A, phase B, whole, beside stable
+    `torch.sort` of the hashes), the join scans over those 20M int64 keys, the restore sort of
     the core's 10M x 8 output (key: the table-1 row index, payload 7 int64
     columns of its rows, zeros from num_out on) and the hash inner join's
     10M row sort (`stable_key_sort_rows_with_key`: the wide element, one
@@ -1303,14 +1321,15 @@ def phase_hash_shapes(r1, r2, cfg) -> dict:
     # Each table's key column read (a strided 8 bytes a row), the hash written.
     rec["hash_mix_bound"] = bound(2 * nbytes(h1, h2), compares=12 * n)
 
+    # The merge sort as the path runs it (`sort_key_permutation`): the key
+    # sorted with its position as the payload, so the permutation is the
+    # merged positions; one column gather of the key.
     keys = torch.cat([h1, h2])
     pos = torch.arange(n, dtype=torch.int32, device="cuda")
-    check(hs.element_kind((keys, pos), 2) == hs.KIND_WIDE_I64, "hash merge sort: not the wide element")
-    time_sort(rec, "hash_merge_sort", (keys, pos), 2)
-    # Part of the whole sort's time: `element_kind` proves the second key to
-    # be arange(n) on the card, a host sync.
-    rec["element_kind_host_ms"] = host_ms(lambda: hs.element_kind((keys, pos), 2))
-    mkeys, mpos = hs.hbm_sort((keys, pos), 2)
+    check(hs.element_kind((keys,), 1) == hs.KIND_WIDE_I64, "hash merge sort: not the wide element")
+    time_sort(rec, "hash_merge_sort", (keys, pos), 1,
+              whole=lambda _=None: hs.sort_key_permutation(keys), inputs=(keys,))
+    mkeys, mpos = hs.sort_key_permutation(keys)
     time_scan(rec, "hash_", mkeys, mpos, cap1)
 
     iota1 = torch.arange(cap1, dtype=torch.int32, device="cuda")
@@ -1473,26 +1492,347 @@ def phase_csv_debug_log() -> dict:
     return by
 
 
+# --- the other element types (uint64, float64, float32, uint32) --------------
+
+# Keys of an 8-byte type that do not fit int32 run the int64 query's wide
+# kernels on their order keys: the wide merge sort with its column gathers
+# and the int64 join scan; a float table's rows move as int64 bits.
+TYPED_FUSED_KERNELS = FUSED_WIDE_KERNELS
+TYPED_HASH_KERNELS = HASH_ONE_TO_ONE_KERNELS
+TYPED_STAGED_KERNELS = STAGED_KERNELS
+
+
+def shifted_key(rows, dtype, shift: int = 0):
+    """``rows`` as ``dtype`` with ``shift`` added to the key column (col 0)."""
+    out = rows.astype(dtype)
+    out[:, 0] += np.dtype(dtype).type(shift)
+    return out
+
+
+def int64_rows(r1, r2, cfg) -> np.ndarray:
+    """The valid rows of the int64 query on the card (checked against the
+    plain path in its own phase)."""
+    from pim_sort_merge_join_tpu_torch import QueryPipeline, Table
+
+    return QueryPipeline(cfg).run_tables(Table.from_numpy(r1), Table.from_numpy(r2)).to_numpy()
+
+
+def typed_query(t1, t2, cfg, want: np.ndarray, label: str, kernels_of_path: set) -> dict:
+    """`run_tables` of ``cfg`` on the card's typed tables, counted: exactly
+    ``kernels_of_path``, valid rows bit for bit ``want``, zeros after them;
+    its host ms (median of 3) and peak memory above the tables."""
+    import torch
+
+    from pim_sort_merge_join_tpu_torch import QueryPipeline
+    from pim_sort_merge_join_tpu_torch.columnar import dtypes
+
+    pipe = QueryPipeline(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out, launches = run_counted(lambda: pipe.run_tables(t1, t2), kernels_of_path, label)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    got = out.to_numpy()
+    check(got.dtype == want.dtype and got.shape == want.shape and got.tobytes() == want.tobytes(),
+          f"{label}: {got.shape} {got.dtype} rows differ from the int64 query's {want.shape}")
+    check(not bool(dtypes.bits(out.data[got.shape[0]:]).any()), f"{label}: rows past num_rows")
+    check(got.shape[0] > 0, f"{label}: no rows")
+    ms = host_ms(lambda: pipe.run_tables(t1, t2))
+    rec = {"rows": got.shape[0], "ms": ms, "peak_gb": round(peak, 3), "launches": launches,
+           "narrow_keys": pipe.resolved_narrow_keys}
+    log(f"typed {label}: {got.shape[0]} rows equal to the int64 query's; launches {launches}; "
+        f"run_tables {ms:.3f} ms (median of 3); peak memory above the tables {peak:.2f} GB")
+    return rec
+
+
+def phase_types(r1, r2, cfg, a1, a2, acfg) -> dict:
+    """The fused 1:1 query on uint64 tables (keys + 2^63, predicate + 2^63)
+    and on float64 tables of the same values, the 1:1 hash join on those
+    float64 tables, and the staged inner join on uint64 tables (path A's,
+    keys + 2^63), at 10M rows/table: each must give the int64 query's rows
+    with the same key shift, in its own type."""
+    import dataclasses
+
+    import torch
+
+    from pim_sort_merge_join_tpu_torch import Predicate, Table
+
+    hi, thr = 2**63, cfg.predicate1.value
+    want = int64_rows(r1, r2, cfg)
+    want_hash = int64_rows(r1, r2, hash_config(cfg))
+    rec = {}
+    upred = Predicate(0, ">", hi + thr)
+    u1, u2 = (Table.from_numpy(shifted_key(r, np.uint64, hi), dtype=np.uint64) for r in (r1, r2))
+    rec["uint64 fused 10M"] = typed_query(
+        u1, u2, dataclasses.replace(cfg, dtype="uint64", predicate1=upred, predicate2=upred),
+        shifted_key(want, np.uint64, hi), "uint64 fused 10M", TYPED_FUSED_KERNELS)
+    del u1, u2
+    f1, f2 = (Table.from_numpy(r, dtype=np.float64) for r in (r1, r2))
+    fcfg = dataclasses.replace(cfg, dtype="float64")
+    rec["float64 fused 10M"] = typed_query(f1, f2, fcfg, want.astype(np.float64),
+                                           "float64 fused 10M", TYPED_FUSED_KERNELS)
+    rec["float64 hash 1:1 10M"] = typed_query(f1, f2, hash_config(fcfg),
+                                              want_hash.astype(np.float64),
+                                              "float64 hash 1:1 10M", TYPED_HASH_KERNELS)
+    del f1, f2, want, want_hash
+    torch.cuda.empty_cache()
+    want_a = int64_rows(a1, a2, acfg)
+    apred = Predicate(0, ">", hi + acfg.predicate1.value)
+    u1, u2 = (Table.from_numpy(shifted_key(r, np.uint64, hi), dtype=np.uint64) for r in (a1, a2))
+    rec["uint64 staged inner 10M"] = typed_query(
+        u1, u2, dataclasses.replace(acfg, dtype="uint64", predicate1=apred, predicate2=apred),
+        shifted_key(want_a, np.uint64, hi), "uint64 staged inner 10M", TYPED_STAGED_KERNELS)
+    del u1, u2
+    for label, r in rec.items():
+        check(r["narrow_keys"] is False, f"{label}: keys narrowed, the wide kernels did not run")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def edge_key_pools() -> dict:
+    """Per type, the keys that need care: ±0.0, ±inf, NaN, subnormals and
+    the extremes of the floats; 0, 2^63 ± 1 and the maxima of the unsigned."""
+    pools = {}
+    for dtype in (np.float32, np.float64):
+        info = np.finfo(dtype)
+        sub = np.nextafter(dtype(0), dtype(1))
+        pools[np.dtype(dtype).name] = np.array(
+            [0.0, -0.0, np.inf, -np.inf, np.nan, sub, -sub, info.tiny, 1.5, -1.5, info.max,
+             info.min], dtype)
+    pools["uint64"] = np.array([0, 1, 2**63 - 1, 2**63, 2**63 + 1, 2**64 - 2, 2**64 - 1, 5],
+                               np.uint64)
+    pools["uint32"] = np.array([0, 1, 2**31 - 1, 2**31, 2**31 + 1, 2**32 - 2, 2**32 - 1],
+                               np.uint32)
+    return pools
+
+
+def phase_edge_keys(rng) -> dict:
+    """Small tables of edge keys through every function that compares keys:
+    the filter (`>` and `!=`), `sort_by_key` (the merge sort and the
+    bitonic table sort), `stable_key_sort`, the fused 1:1 join, the staged
+    inner join, both hash joins, `hash_aggregate` and `merge_sorted`. The
+    card's result must equal the plain path's on CPU tensors bit for bit
+    (the payloads are small integers, so float sums are exact in any
+    order)."""
+    import dataclasses
+
+    import torch
+
+    from pim_sort_merge_join_tpu_torch import EngineConfig, Predicate, Table
+    from pim_sort_merge_join_tpu_torch.columnar import dtypes
+    from pim_sort_merge_join_tpu_torch.engine.pipeline import pipeline_core
+    from pim_sort_merge_join_tpu_torch.ops import filter as filter_ops
+    from pim_sort_merge_join_tpu_torch.ops import hash_join as hj
+    from pim_sort_merge_join_tpu_torch.ops import merge as merge_ops
+    from pim_sort_merge_join_tpu_torch.ops import sort as sort_ops
+    from pim_sort_merge_join_tpu_torch.ops.kernels.hbm_sort import RUN
+
+    def same(got, want, what):
+        if isinstance(got, Table):
+            check(int(got.num_rows) == int(want.num_rows), f"edge keys {what}: num_rows")
+            got, want = got.data, want.data
+        g, w = got.cpu(), want
+        check(g.dtype == w.dtype and g.shape == w.shape
+              and torch.equal(dtypes.bits(g) if g.dtype != torch.bool else g,
+                              dtypes.bits(w) if w.dtype != torch.bool else w),
+              f"edge keys {what}: the card differs from the plain path")
+
+    checked = 0
+    for name, pool in edge_key_pools().items():
+        big, small = 3 * RUN + 5, 1500
+        rows = {n: np.column_stack([rng.choice(pool, n), rng.integers(0, 9, (n, 3)).astype(pool.dtype)])
+                for n in (big, small, small + 7)}
+        card = {n: Table.from_numpy(r, dtype=pool.dtype, capacity=n + 3) for n, r in rows.items()}
+        host = {n: Table.from_numpy(r, dtype=pool.dtype, capacity=n + 3, device="cpu")
+                for n, r in rows.items()}
+        value = int(pool[2]) if pool.dtype.kind == "u" else 0
+        for op in (">", "!="):
+            same(filter_ops.predicate_mask(card[big], Predicate(0, op, value)),
+                 filter_ops.predicate_mask(host[big], Predicate(0, op, value)), f"{name} filter {op}")
+        for alg in ("auto", "pallas_bitonic"):
+            same(sort_ops.sort_by_key(card[big], 0, algorithm=alg),
+                 sort_ops.sort_by_key(host[big], 0, algorithm=alg), f"{name} sort_by_key {alg}")
+        ops = lambda t: (t.data[:, 0].contiguous(), t.data[:, 1].contiguous())  # noqa: E731
+        for g, w in zip(sort_ops.stable_key_sort(ops(card[big])), sort_ops.stable_key_sort(ops(host[big]))):
+            same(g, w, f"{name} stable_key_sort")
+        for agg in ("sum", "count", "min", "max"):
+            same(hj.hash_aggregate(card[big], 0, 1, agg), hj.hash_aggregate(host[big], 0, 1, agg),
+                 f"{name} hash_aggregate {agg}")
+        s1, s2 = (sort_ops.sort_by_key(card[n], 0) for n in (small, small + 7))
+        h1, h2 = (sort_ops.sort_by_key(host[n], 0) for n in (small, small + 7))
+        same(merge_ops.merge_sorted(s1, s2, 0), merge_ops.merge_sorted(h1, h2, 0), f"{name} merge_sorted")
+        pred = Predicate(1, "!=", 99)
+        base = EngineConfig(predicate1=pred, predicate2=pred, dtype=name)
+        for label, kw in (("fused", {}), ("inner", {"join_mode": "inner", "join_slack": 400.0}),
+                          ("hash", {"join_algorithm": "hash"}),
+                          ("hash inner", {"join_algorithm": "hash", "join_mode": "inner",
+                                          "join_slack": 400.0})):
+            c = dataclasses.replace(base, narrow_keys=False, narrow_data=False, **kw)
+            got = pipeline_core(card[small], card[small + 7], c)
+            want = pipeline_core(host[small], host[small + 7], c)
+            same(got, want, f"{name} {label}")
+            check(int(got.num_rows) > 0, f"edge keys {name} {label}: no rows")
+            checked += 1
+        checked += 10
+    torch.cuda.synchronize()
+    log(f"edge keys: {checked} results on the card equal to the plain path "
+        f"({', '.join(edge_key_pools())})")
+    return {"checked": checked}
+
+
+def phase_csv_stages(r1, r2, cfg, want_rows: int) -> dict:
+    """The fused cell's tables written once as CSV with the port's native
+    formatter, then `run_csv` at 10M rows/table: its stages (ingest with
+    the native parser, host to device, execute, materialize), and the
+    native parse beside the numpy parse (the numpy one at 1M rows)."""
+    import torch
+
+    from pim_sort_merge_join_tpu_torch import QueryPipeline
+    from pim_sort_merge_join_tpu_torch.columnar import csv_io
+    from pim_sort_merge_join_tpu_torch.native import csv_native
+
+    check(csv_native.available(), "the native CSV parser did not build on this machine")
+    rec = {}
+    with tempfile.TemporaryDirectory() as d:
+        p1, p2, po, pm = (os.path.join(d, f) for f in ("d1.csv", "d2.csv", "r.csv", "d1_1m.csv"))
+        t0 = time.perf_counter()
+        csv_io.write_csv(p1, r1)
+        csv_io.write_csv(p2, r2)
+        rec["write_2_tables_s"] = time.perf_counter() - t0
+        rec["file_mb"] = os.path.getsize(p1) / 1e6
+        pipe = QueryPipeline(cfg)
+        res = pipe.run_csv(p1, p2, po)
+        torch.cuda.synchronize()
+        stages = {m.name: m for m in pipe.metrics.stages}
+        check(stages["ingest"].extra.get("parser") == "native",
+              f"run_csv ingest used the {stages['ingest'].extra.get('parser')} parser")
+        rec["stages_ms"] = {k: m.wall_s * 1e3 for k, m in stages.items()}
+        rows = int(res.num_rows)
+        check(rows == want_rows, f"run_csv 10M: {rows} rows, run_tables gave {want_rows}")
+        got = csv_native.parse_csv(po)
+        check(np.array_equal(got, res.to_numpy()), "run_csv 10M: the CSV differs from the result")
+        t0 = time.perf_counter()
+        parsed = csv_native.parse_csv(p1)
+        rec["native_parse_10M_s"] = time.perf_counter() - t0
+        check(np.array_equal(parsed, r1), "native parse of the 10M table differs from the table")
+        csv_io.write_csv(pm, r1[:1_000_000])
+        t0 = time.perf_counter()
+        native_1m = csv_native.parse_csv(pm)
+        rec["native_parse_1M_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        numpy_1m = csv_io._load_numpy(pm)
+        rec["numpy_parse_1M_s"] = time.perf_counter() - t0
+        check(np.array_equal(native_1m, numpy_1m) and np.array_equal(numpy_1m, r1[:1_000_000]),
+              "native and numpy parses of 1M rows differ")
+    log("CSV stages 10M (run_csv ms by stage; parse s): " + json.dumps(rec))
+    return rec
+
+
+def phase_cli() -> dict:
+    """The command line and the launcher as subprocesses on the 100k pair,
+    all started together: `cli run` with the default config, with
+    ``--dtype float64`` and with ``--profile DIR`` must write the oracle's
+    bytes; with ``--join-algorithm hash`` the bytes of the same command on
+    the CPU (its rows are in table-1 order) and the oracle's rows;
+    `runner.run` must exit 0 with ``OUTPUT MATCH``."""
+    from pim_sort_merge_join_tpu_torch.columnar import csv_io
+    from pim_sort_merge_join_tpu_torch.columnar.generate import generate_table
+    from pim_sort_merge_join_tpu_torch.engine.profiling import trace_path
+    from pim_sort_merge_join_tpu_torch.ops import oracle
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    rows1, rows2 = generate_table(100_000, seed=1), generate_table(100_000, seed=2)
+    with tempfile.TemporaryDirectory() as d:
+        p1, p2 = os.path.join(d, "data1.csv"), os.path.join(d, "data2.csv")
+        csv_io.write_csv(p1, rows1)
+        csv_io.write_csv(p2, rows2)
+        out = {k: os.path.join(d, f"{k}.csv") for k in
+               ("default", "float64", "hash", "hash_cpu", "profile", "launcher")}
+        cli = [sys.executable, "-m", "pim_sort_merge_join_tpu_torch.runner.cli", "run", p1, p2]
+        cmds = {
+            "default": cli + ["-o", out["default"]],
+            "float64": cli + ["-o", out["float64"], "--dtype", "float64"],
+            "hash": cli + ["-o", out["hash"], "--join-algorithm", "hash"],
+            "hash_cpu": cli + ["-o", out["hash_cpu"], "--join-algorithm", "hash", "--device", "cpu"],
+            "profile": cli + ["-o", out["profile"], "--profile", os.path.join(d, "prof")],
+            "launcher": [sys.executable, "-m", "pim_sort_merge_join_tpu_torch.runner.run", p1, p2,
+                         out["launcher"]],
+        }
+        t0 = time.perf_counter()
+        procs = {k: subprocess.Popen(c, cwd=root, env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True) for k, c in cmds.items()}
+        done = {k: (p.communicate(timeout=300), p.returncode) for k, p in procs.items()}
+        wall = time.perf_counter() - t0
+        for k, ((_, err), rc) in done.items():
+            check(rc == 0, f"cli {k}: exit {rc}\n{err[-2000:]}")
+        check("OUTPUT MATCH" in done["launcher"][0][0], "runner.run printed no OUTPUT MATCH")
+
+        def oracle_bytes(a, b):
+            buf = io.StringIO()
+            csv_io.write_csv(buf, oracle.pipeline_oracle(a, b))
+            return buf.getvalue().encode()
+
+        def read(k):
+            with open(out[k], "rb") as f:
+                return f.read()
+
+        want = oracle_bytes(rows1, rows2)
+        for k in ("default", "profile", "launcher"):
+            check(read(k) == want, f"cli {k}: output bytes differ from the oracle's")
+        check(read("float64") == oracle_bytes(rows1.astype(np.float64), rows2.astype(np.float64)),
+              "cli --dtype float64: output bytes differ from the oracle's")
+        check(read("hash") == read("hash_cpu"), "cli --join-algorithm hash: card and CPU differ")
+        hashed = csv_io.load_csv_numpy(out["hash"])
+        want_rows = oracle.pipeline_oracle(rows1, rows2)
+        check(np.array_equal(hashed[np.argsort(hashed[:, 0], kind="stable")], want_rows),
+              "cli --join-algorithm hash: rows differ from the oracle's")
+        check(os.path.getsize(trace_path(os.path.join(d, "prof"))) > 0, "cli --profile: no trace")
+    rec = {"commands": len(cmds), "wall_s": wall, "rows": int(want_rows.shape[0])}
+    log(f"cli and launcher: {len(cmds)} subprocesses in {wall:.1f} s, every output equal "
+        f"({rec['rows']} rows); trace written")
+    return rec
+
+
+# The launch counters each entry of the `kernels` line counts.
+LAUNCH_KEYS = {
+    "hbm_sort_chunk": {"hbm_sort_chunk"}, "hbm_sort_merge": {"hbm_sort_merge"},
+    "hbm_sort_gather": {"hbm_sort_gather"}, "gather_rows": {"gather_rows"},
+    "join_scan_forward": {"join_scan_forward"}, "join_scan_backward": {"join_scan_backward"},
+    "bitonic_sort": {"bitonic_local", "bitonic_strided"}, "radix_tile_sort": {"radix_tile"},
+    "lsd_radix_sort": LSD_KERNELS,
+}
+
 # The device names of the kernels in csrc/, as the profiler lists them.
 PORT_KERNEL_NAMES = ("run_sort_kernel", "merge_kernel", "gather_kernel", "gather_rows_kernel",
                      "join_scan_", "bitonic_pass_kernel", "radix_")
 
 
 def phase_profile() -> None:
-    """One `run_tables` of the fused 10M and of the staged 10M query under
-    `torch.profiler`: device span, busy time, kernel launches, peak memory
-    and the kernels by device time."""
+    """One `run_tables` of the fused 10M, the staged 10M, the 1:1 hash 10M
+    and the uint64 fused 10M query under `torch.profiler`: device span,
+    busy time, kernel launches, peak memory and the kernels by device time;
+    none may call `torch.equal`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from pim_sort_merge_join_tpu_torch import QueryPipeline, Table
 
+    import dataclasses
+
+    from pim_sort_merge_join_tpu_torch import Predicate
+
     r1, r2, cfg = slice_inputs(10_000_000)
+    upred = Predicate(0, ">", 2**63 + cfg.predicate1.value)
+    ucfg = dataclasses.replace(cfg, dtype="uint64", predicate1=upred, predicate2=upred)
+    u1, u2 = (shifted_key(r, np.uint64, 2**63) for r in (r1, r2))
     for label, (r1, r2, cfg) in (("fused 10M", (r1, r2, cfg)),
                                  ("staged inner 10M", staged_inputs(10_000_000, "auto")),
-                                 ("hash 1:1 10M", (r1, r2, hash_config(cfg)))):
-        g1, g2, pipe = Table.from_numpy(r1), Table.from_numpy(r2), QueryPipeline(cfg)
+                                 ("hash 1:1 10M", (r1, r2, hash_config(cfg))),
+                                 ("uint64 fused 10M", (u1, u2, ucfg))):
+        g1, g2 = (Table.from_numpy(r, dtype=cfg.dtype) for r in (r1, r2))
+        pipe = QueryPipeline(cfg)
         del r1, r2
         for _ in range(2):
             pipe.run_tables(g1, g2)
@@ -1505,6 +1845,8 @@ def phase_profile() -> None:
             host_ms = (time.perf_counter() - t0) * 1e3
         on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         check(bool(on_card), f"profile {label}: the profiler saw no device activity")
+        equals = sum(1 for e in prof.events() if e.name == "aten::equal")
+        check(equals == 0, f"profile {label}: {equals} torch.equal calls (a host sync each)")
         start = min(e.time_range.start for e in on_card)
         end = max(e.time_range.end for e in on_card)
         busy = sum(e.time_range.end - e.time_range.start for e in on_card)
@@ -1517,7 +1859,7 @@ def phase_profile() -> None:
         top = ranked[:14] + [kv for kv in ranked[14:] if "join_scan" in kv[0]]
         ours = sum(t for name, (t, _) in by_name.items()
                    if any(k in name for k in PORT_KERNEL_NAMES))
-        log(f"profile {label}: host {host_ms:.3f} ms under the profiler; device span "
+        log(f"profile {label}: no torch.equal; host {host_ms:.3f} ms under the profiler; device span "
             f"{(end - start) / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms "
             f"({100 * (1 - busy / (end - start)):.1f}% idle; the port's kernels {ours / 1e3:.3f} ms, "
             f"torch ops {(busy - ours) / 1e3:.3f} ms), {len(on_card)} device activities; "
@@ -1587,12 +1929,19 @@ def main() -> int:
     _, mshi, rowshi = phase_slice(a1, a2, hash_config(acfg), expect_narrow=True,
                                   label="hash inner 10M", kernels_of_path=HASH_INNER_KERNELS)
     check(rowshi == rowsa, f"hash inner 10M: {rowshi} rows, the sort-merge inner join {rowsa}")
+    r1, r2, cfg = slice_inputs(10_000_000)
+    typed = phase_types(r1, r2, cfg, a1, a2, acfg)
     del a1, a2
+    torch.cuda.empty_cache()
+    csv_stages = phase_csv_stages(r1, r2, cfg, rows10)
+    del r1, r2
     torch.cuda.empty_cache()
     phase_operators()
     torch.cuda.empty_cache()
     phase_resumable()
     phase_csv_debug_log()
+    phase_edge_keys(rng)
+    phase_cli()
 
     src = "pim_sort_merge_join_tpu_torch/csrc/"
     ref = "pim_sort_merge_join_tpu/ops/pallas/"
@@ -1604,10 +1953,14 @@ def main() -> int:
                        shapes["wide_backward_err"])
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound_rec, library_ms=None):
+        # Launches per query on each path of the other element types.
+        by_path = {label: sum(v for k, v in r["launches"].items() if k in LAUNCH_KEYS[name])
+                   for label, r in typed.items()}
         return {"name": name, "route": "cuda", "source": src + source,
                 "replaces": ref + replaces, "launches": launches, "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_rec["bound_ms"],
-                "bound_by": bound_rec["bound_by"], "library_ms": library_ms}
+                "bound_by": bound_rec["bound_by"], "library_ms": library_ms,
+                "launches_typed_paths": by_path}
 
     chunk, merge = shapes["chunk"], shapes["merge"]
     # The column gather at the inner join's un-merge sort (staged A launches
@@ -1662,6 +2015,9 @@ def main() -> int:
     log(f"slice 10M: {rows10} rows in {ms10:.3f} ms; staged inner 10M: {rowsa} rows in "
         f"{msa:.3f} ms; staged inner 2M bitonic: {rowsb} rows in {msb:.3f} ms; hash 1:1 10M: "
         f"{rowsh} rows in {msh:.3f} ms; hash inner 10M: {rowshi} rows in {mshi:.3f} ms")
+    log("typed paths 10M (host ms, median of 3): " + json.dumps(
+        {label: round(r["ms"], 3) for label, r in typed.items()})
+        + f"; run_csv 10M stages (ms): {json.dumps(csv_stages['stages_ms'])}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,7 +3,9 @@
 A table is a fixed-capacity row-major ``[capacity, ncol]`` tensor plus a
 0-d int32 ``num_rows`` tensor on the same device. Rows at index
 ``>= num_rows`` are padding; every operator masks them out. The layout is
-the JAX package's, so a test compares the two buffers as they are.
+the JAX package's, so a test compares the two buffers as they are. The
+buffer holds any of the six types of `columnar/dtypes`; operators compare
+its `order_keys` and move its bits (`dtypes.bits`).
 """
 
 from __future__ import annotations
@@ -14,12 +16,11 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from pim_sort_merge_join_tpu_torch.columnar import dtypes
+from pim_sort_merge_join_tpu_torch.columnar.dtypes import key_sentinel
 from pim_sort_merge_join_tpu_torch.device import resolve_device
 
-
-def key_sentinel(dtype: torch.dtype) -> int:
-    """Sentinel for masked-out sort keys: the dtype's max, sorts last."""
-    return torch.iinfo(dtype).max
+__all__ = ["Table", "key_sentinel"]
 
 
 def _default_names(ncol: int) -> tuple:
@@ -68,12 +69,15 @@ class Table:
         *,
         capacity: int | None = None,
         names: Sequence[str] | None = None,
-        dtype: torch.dtype = torch.int64,
+        dtype=torch.int64,
         device: str | torch.device | None = None,
     ) -> "Table":
         """Build a table on ``device`` (the card unless named) from a
-        row-major ``[nrow, ncol]`` host array."""
+        row-major ``[nrow, ncol]`` host array. ``dtype`` (a torch or numpy
+        type) is the table's; the array is converted to it as numpy's
+        assignment converts, as the JAX package's does."""
         device = resolve_device(device)
+        dtype = dtypes.as_torch_dtype(dtype)
         if array.ndim != 2:
             raise ValueError(f"expected 2D [nrow, ncol] array, got {array.shape}")
         nrow, ncol = array.shape
@@ -81,10 +85,10 @@ class Table:
         if capacity < nrow:
             raise ValueError(f"capacity {capacity} < nrow {nrow}")
         names = _default_names(ncol) if names is None else tuple(names)
-        buf = torch.zeros((capacity, ncol), dtype=dtype)
-        buf[:nrow] = torch.tensor(array)
+        buf = np.zeros((capacity, ncol), dtype=dtypes.numpy_dtype(dtype))
+        buf[:nrow] = array
         return cls(
-            data=buf.to(device),
+            data=torch.from_numpy(buf).to(device),
             num_rows=torch.tensor(nrow, dtype=torch.int32, device=device),
             names=names,
         )
@@ -96,12 +100,12 @@ class Table:
         capacity: int,
         *,
         names=None,
-        dtype: torch.dtype = torch.int64,
+        dtype=torch.int64,
         device: str | torch.device | None = None,
     ) -> "Table":
         device = resolve_device(device)
         return cls(
-            data=torch.zeros((capacity, ncol), dtype=dtype, device=device),
+            data=torch.zeros((capacity, ncol), dtype=dtypes.as_torch_dtype(dtype), device=device),
             num_rows=torch.tensor(0, dtype=torch.int32, device=device),
             names=_default_names(ncol) if names is None else tuple(names),
         )
@@ -112,9 +116,18 @@ class Table:
         return iota < self.num_rows
 
     def masked_keys(self, col: int) -> torch.Tensor:
-        """Column ``col`` with padding rows replaced by the max sentinel."""
-        sent = torch.tensor(key_sentinel(self.dtype), dtype=self.dtype, device=self.device)
-        return torch.where(self.valid_mask(), self.data[:, col], sent)
+        """Column ``col`` in the table's type with padding rows replaced by
+        `key_sentinel` (the type's maximum, +inf for floats)."""
+        sent = dtypes.sentinel_bits(self.dtype)
+        col_bits = torch.where(self.valid_mask(), dtypes.bits(self.data[:, col]), sent)
+        return dtypes.from_bits(col_bits, self.dtype)
+
+    def order_keys(self, col: int) -> torch.Tensor:
+        """`dtypes.order_key` of column ``col`` with padding rows replaced by
+        the order sentinel: what the sorts and joins compare."""
+        return torch.where(
+            self.valid_mask(), dtypes.order_key(self.data[:, col]), dtypes.order_max(self.dtype)
+        )
 
     def to_numpy(self) -> np.ndarray:
         """Row-major ``[num_rows, ncol]`` host array of the valid rows."""
@@ -127,8 +140,8 @@ class Table:
         if capacity == cap:
             return self
         if capacity > cap:
-            pad = self.data.new_zeros((capacity - cap, ncol))
-            data = torch.cat([self.data, pad], dim=0)
+            data = self.data.new_zeros((capacity, ncol))
+            data[:cap] = self.data
         else:
             data = self.data[:capacity]
         return dataclasses.replace(self, data=data)

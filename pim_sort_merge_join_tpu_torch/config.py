@@ -1,9 +1,10 @@
 """Runtime engine configuration (PyTorch port of `pim_sort_merge_join_tpu/config.py`).
 
 The field set and defaults equal the JAX package's `EngineConfig`, so a
-config carries across unchanged (`convert.config_from_reference`). A float
-``dtype``, which the port does not carry yet, raises `NotImplementedError`
-naming the ROADMAP item that brings it.
+config carries across unchanged (`convert.config_from_reference`), and so
+do its checks: ``dtype`` is one of the six table types
+(`columnar/dtypes.TORCH_DTYPES`), and ``narrow_keys``/``narrow_data`` may be
+forced on only for an integer type.
 """
 
 from __future__ import annotations
@@ -14,10 +15,9 @@ from typing import Literal
 import numpy as np
 import torch
 
-PredicateOp = Literal[">", ">=", "<", "<=", "==", "!="]
+from pim_sort_merge_join_tpu_torch.columnar.dtypes import TORCH_DTYPES
 
-# numpy dtype name -> torch dtype. The port carries integer tables only.
-TORCH_DTYPES = {"int32": torch.int32, "int64": torch.int64}
+PredicateOp = Literal[">", ">=", "<", "<=", "==", "!="]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,9 +71,8 @@ class EngineConfig:
 
     def __post_init__(self):
         if self.dtype not in TORCH_DTYPES:
-            raise NotImplementedError(
-                f"dtype={self.dtype!r}: the port carries int32/int64 tables "
-                "only (ROADMAP, \"Float keys and general num_keys=2 on CUDA\")"
+            raise ValueError(
+                f"dtype={self.dtype!r}: one of {sorted(TORCH_DTYPES)}"
             )
         for name in ("narrow_keys", "narrow_data"):
             val = getattr(self, name)
@@ -81,13 +80,19 @@ class EngineConfig:
                 raise ValueError(
                     f"{name} must be True, False, or 'auto' (got {val!r})"
                 )
+            if val is True and self.torch_dtype().is_floating_point:
+                raise ValueError(
+                    f"{name} applies to integer dtypes only "
+                    f"(got dtype={self.dtype!r})"
+                )
 
     def torch_dtype(self) -> torch.dtype:
         return TORCH_DTYPES[self.dtype]
 
     def narrowable(self) -> bool:
-        """Whether narrow-key dispatch can apply to this dtype at all."""
-        return self.torch_dtype() == torch.int64
+        """Whether narrow-key dispatch can apply to this dtype at all: every
+        8-byte integer type (int64 and uint64)."""
+        return self.torch_dtype() in (torch.int64, torch.uint64)
 
     def resolve_narrow(self, *key_columns) -> "EngineConfig":
         """Return a copy with ``narrow_keys`` resolved to a concrete bool.

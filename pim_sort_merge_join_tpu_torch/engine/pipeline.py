@@ -7,7 +7,7 @@ sort-merge inner join, compact then hash join for ``join_algorithm="hash"``.
 probe), on CSV paths (`run_csv`) or stage by stage with checkpoints
 (`run_tables_resumable`); ``debug_log`` sends its stage events through
 `engine/logging.log_event`. PyTorch runs eagerly, so there is no compile
-cache.
+cache. Tables of every type of `columnar/dtypes` run every path.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from pim_sort_merge_join_tpu_torch.columnar import csv_io
+from pim_sort_merge_join_tpu_torch.columnar import csv_io, dtypes
 from pim_sort_merge_join_tpu_torch.columnar.table import Table
 from pim_sort_merge_join_tpu_torch.config import EngineConfig
 from pim_sort_merge_join_tpu_torch.device import resolve_device
@@ -109,18 +109,23 @@ class QueryPipeline:
 
         Probes the raw buffers, padding included: padding zeros keep the
         range inside int32, never push a valid value out. One readback.
-        Returns (keys_fit, all_data_fits).
+        Returns (keys_fit, all_data_fits); (False, False) for a type that
+        cannot narrow. Extremes are taken on order keys, since torch has no
+        ``min`` for uint64.
         """
         if not self.config.narrowable():
             return False, False
         k1c, k2c = self.config.join_key1, self.config.join_key2
+        ok1, ok2 = dtypes.order_key(t1.data), dtypes.order_key(t2.data)
         probe = torch.stack([
-            torch.minimum(t1.data[:, k1c].min(), t2.data[:, k2c].min()),
-            torch.maximum(t1.data[:, k1c].max(), t2.data[:, k2c].max()),
-            torch.minimum(t1.data.min(), t2.data.min()),
-            torch.maximum(t1.data.max(), t2.data.max()),
+            torch.minimum(ok1[:, k1c].min(), ok2[:, k2c].min()),
+            torch.maximum(ok1[:, k1c].max(), ok2[:, k2c].max()),
+            torch.minimum(ok1.min(), ok2.min()),
+            torch.maximum(ok1.max(), ok2.max()),
         ])
-        klo, khi, dlo, dhi = probe.tolist()
+        # The order key of a uint64 value v is v - 2^63.
+        shift = 2**63 if dtypes.is_unsigned(t1.dtype) else 0
+        klo, khi, dlo, dhi = (v + shift for v in probe.tolist())
         info = np.iinfo(np.int32)
         keys_fit = bool(klo >= info.min and khi < info.max)
         data_fit = bool(dlo >= info.min and dhi < info.max)
@@ -214,9 +219,12 @@ class QueryPipeline:
         dtype = self.config.torch_dtype()
         np_dtype = np.dtype(self.config.dtype)
         with self.metrics.stage("ingest") as m:
-            rows1 = csv_io.load_csv_numpy(path1, dtype=np.int64)
-            rows2 = csv_io.load_csv_numpy(path2, dtype=np.int64)
+            # Every field is parsed as an integer, whatever the type (the
+            # reference's `atoi`); the cast to the table type follows.
+            rows1, parser1 = csv_io.read_csv(path1, dtype=np.int64)
+            rows2, parser2 = csv_io.read_csv(path2, dtype=np.int64)
             m.rows_in = rows1.shape[0] + rows2.shape[0]
+            m.extra["parser"] = parser1 if parser1 == parser2 else f"{parser1},{parser2}"
         if self.config.debug_log:
             log_event(
                 "ingest",
@@ -224,6 +232,7 @@ class QueryPipeline:
                 table2_rows=rows2.shape[0],
                 table1_bytes=rows1.nbytes,
                 table2_bytes=rows2.nbytes,
+                parser=m.extra["parser"],
             )
         if np_dtype.itemsize < 8:
             validate.check_dtype_range(rows1, np_dtype, path1)

@@ -3,6 +3,12 @@
 The fused pipeline needs only the predicate mask: masked-out rows get
 sentinel keys and the join's sorts place the survivors. The staged path
 compacts each table first (`apply_filter`).
+
+Signed integers and floats compare as torch compares them (a NaN value
+fails every predicate but ``!=``, as in the JAX package); unsigned columns
+compare through their order keys (`columnar/dtypes.order_key`), since torch
+has no ordering comparison for them, and a predicate value above the int64
+range (a uint64 one) is exact there.
 """
 
 from __future__ import annotations
@@ -11,6 +17,7 @@ import dataclasses
 
 import torch
 
+from pim_sort_merge_join_tpu_torch.columnar import dtypes
 from pim_sort_merge_join_tpu_torch.columnar.table import Table
 from pim_sort_merge_join_tpu_torch.config import Predicate
 
@@ -26,8 +33,12 @@ _OPS = {
 
 def predicate_mask(table: Table, pred: Predicate) -> torch.Tensor:
     """Boolean mask of valid rows satisfying the predicate."""
-    value = torch.tensor(pred.value, dtype=table.dtype, device=table.device)
-    return table.valid_mask() & _OPS[pred.op](table.column(pred.col), value)
+    col = table.column(pred.col)
+    if dtypes.is_unsigned(table.dtype):
+        col, value = dtypes.order_key(col), dtypes.order_value(pred.value, table.dtype)
+    else:
+        value = torch.tensor(pred.value, dtype=table.dtype, device=table.device)
+    return table.valid_mask() & _OPS[pred.op](col, value)
 
 
 def compact(table: Table, mask: torch.Tensor) -> Table:
@@ -43,8 +54,9 @@ def compact(table: Table, mask: torch.Tensor) -> Table:
         torch.cumsum(mask, 0) - 1,
         count + torch.cumsum(~mask, 0) - 1,
     )
-    data = torch.empty_like(table.data).index_copy_(0, dest, table.data)
-    return dataclasses.replace(table, data=data, num_rows=count)
+    rows = dtypes.bits(table.data)
+    data = torch.empty_like(rows).index_copy_(0, dest, rows)
+    return dataclasses.replace(table, data=dtypes.from_bits(data, table.dtype), num_rows=count)
 
 
 def apply_filter(table: Table, pred: Predicate) -> Table:

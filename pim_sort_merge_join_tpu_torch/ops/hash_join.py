@@ -18,17 +18,26 @@ table. The port keeps that dataflow and its results exactly:
 - `hash_join` (1:1 and inner) and `hash_aggregate` follow the reference
   step for step; output rows are in table-1 row order (1:1, inner) or key
   order (aggregate), as there.
-
-Float keys wait for the port's float tables (ROADMAP, "Float keys and
-general num_keys=2 on CUDA"); `hash_column` refuses them.
+- Keys of every table type: unsigned keys hash their bits, float keys the
+  bits of `_float_order_bits` (the reference's order map, -0.0 as +0.0),
+  bit for bit as the reference hashes them.
+- `hash_aggregate` on floats sums each group with `torch.segment_reduce`:
+  on CPU tensors in row order, as the reference's scatter adds on the CPU;
+  on the card in the library's own fixed order, so every run gives the
+  same bits (where `index_add_` adds in whatever order its atomics land),
+  within the rounding of an n-term sum of the row-order result. Minima
+  and maxima are taken on order keys where torch has no ordering for the
+  type (uint32/uint64).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from pim_sort_merge_join_tpu_torch.columnar import dtypes
 from pim_sort_merge_join_tpu_torch.columnar.table import Table, key_sentinel
 from pim_sort_merge_join_tpu_torch.ops import join as join_ops
 from pim_sort_merge_join_tpu_torch.ops.sort import (
@@ -82,20 +91,25 @@ def mix64(x: torch.Tensor) -> torch.Tensor:
     return x ^ _shr(x, 31)
 
 
+def _float_order_bits(keys: torch.Tensor) -> torch.Tensor:
+    """The reference's order-preserving bijection float -> unsigned int of
+    the same width, as the bits of a signed int: the IEEE bits with every
+    bit flipped for negative values and the sign bit set for the others,
+    -0.0 taken as +0.0 first so that both zeros hash equal."""
+    keys = torch.where(keys == 0, torch.zeros_like(keys), keys)
+    b = dtypes.bits(keys)
+    return torch.where(b < 0, ~b, b | torch.iinfo(b.dtype).min)
+
+
 def hash_column(keys: torch.Tensor) -> torch.Tensor:
-    """Bijective hash of an int32/int64 key column, in the same dtype,
-    ordered as signed values: the reference's unsigned hash ``h`` is
-    ``hash_column(keys) ^ sign bit`` read as unsigned."""
-    if keys.dtype.is_floating_point:
-        raise NotImplementedError(
-            "hash_column: float keys are not ported yet (ROADMAP, \"Float keys and "
-            "general num_keys=2 on CUDA\")"
-        )
-    if keys.dtype == torch.int32:
-        return mix32(keys) ^ torch.iinfo(torch.int32).min
-    if keys.dtype == torch.int64:
-        return mix64(keys) ^ torch.iinfo(torch.int64).min
-    raise ValueError(f"hash_column: int32/int64 keys, got {keys.dtype}")
+    """Bijective hash of a key column of any table type, as the signed
+    integer of its width, ordered as signed values: the reference's
+    unsigned hash ``h`` is ``hash_column(keys) ^ sign bit`` read as
+    unsigned. Unsigned keys hash their bits, floats `_float_order_bits`."""
+    b = _float_order_bits(keys) if keys.dtype.is_floating_point else dtypes.bits(keys)
+    if b.dtype == torch.int32:
+        return mix32(b) ^ torch.iinfo(torch.int32).min
+    return mix64(b) ^ torch.iinfo(torch.int64).min
 
 
 def _hashed_keys(table: Table, key: int) -> torch.Tensor:
@@ -137,16 +151,24 @@ def hash_join(
         # The hashed key vectors feed the sort-merge join's core, which
         # needs no sorted input and pairs duplicates in row order on each
         # side; it emits in hash order, with each table-1 row's index in a
-        # hidden column, and one restore sort puts the rows back in table-1
-        # row order. The reference checks that a float table's type holds
-        # the row index exactly; the port's tables are integer, where it
-        # always does.
+        # hidden column of the table's type, and one restore sort puts the
+        # rows back in table-1 row order. A float type must hold every
+        # row index exactly, or the restore sort scrambles the rows.
+        if t1.dtype.is_floating_point:
+            mant = np.finfo(dtypes.numpy_dtype(t1.dtype)).nmant + 1
+            if cap1 > (1 << mant):
+                raise ValueError(
+                    f"hash_join one_to_one: capacity {cap1} exceeds the "
+                    f"exact-integer range 2**{mant} of table dtype "
+                    f"{dtypes.numpy_dtype(t1.dtype).name}; use a wider dtype or "
+                    "join_algorithm='sort_merge'"
+                )
         h1 = _hashed_keys(t1, key1)
         h2 = _hashed_keys(t2, key2)
         iota1 = torch.arange(cap1, dtype=torch.int32, device=dev)
-        t1aug = dataclasses.replace(
-            t1, data=torch.cat([t1.data, iota1.to(t1.dtype)[:, None]], dim=1)
-        )
+        ords = iota1.to(t1.dtype if t1.dtype.is_floating_point else dtypes.signed_of(t1.dtype))
+        aug = torch.cat([dtypes.bits(t1.data), dtypes.bits(ords)[:, None]], dim=1)
+        t1aug = dataclasses.replace(t1, data=dtypes.from_bits(aug, t1.dtype))
         joined = join_ops._one_to_one_merged(t1aug, t2, key2, h1, h2)
         # joined columns: t1's, the row index (at t1.ncol), t2's without its key.
         ordc = t1.ncol
@@ -154,7 +176,9 @@ def hash_join(
         # Matched rows carry distinct row indices; the others get unique
         # keys past them, and their rows are written as zeros.
         j = torch.arange(joined.capacity, dtype=torch.int32, device=dev)
-        restore = torch.where(j < num_out, joined.data[:, ordc].to(torch.int32), cap1 + j)
+        ords = joined.data[:, ordc]
+        ords = ords.to(torch.int32) if ords.dtype.is_floating_point else dtypes.bits(ords).to(torch.int32)
+        restore = torch.where(j < num_out, ords, cap1 + j)
         keep = [c for c in range(joined.ncol) if c != ordc]
         data = stable_key_sort_rows([(restore, joined.data, keep)], live=num_out)
         return Table(data=data, num_rows=num_out, names=_names(len(keep)))
@@ -193,6 +217,15 @@ def hash_aggregate(table: Table, key: int, value: int, agg: str = "sum") -> Tabl
 
     Returns a 2-column table (key, aggregate) sorted ascending by key, one
     row per distinct key, zeros past ``num_rows``.
+
+    A group's key is its last row's (the reference's scatter writes every
+    row's key, and on the CPU the last one stays; -0.0 and +0.0 are one
+    group). Float sums, minima and maxima go group by group through
+    `torch.segment_reduce`, in the same order on every run (row order on
+    CPU tensors). Groups are emitted in key order with
+    the unused slots after every group; the reference gives those slots
+    the type's largest finite value as key, so its groups of +inf and NaN
+    keys sort behind them and fall off the table (ROADMAP §3).
     """
     if agg not in _AGGS:
         raise ValueError(f"agg must be one of {_AGGS}, got {agg!r}")
@@ -202,7 +235,7 @@ def hash_aggregate(table: Table, key: int, value: int, agg: str = "sum") -> Tabl
     # Group in hash order, emit in key order.
     h = _hashed_keys(table, key)
     sh, _, kv = stable_key_sort_rows_with_key(h, table.data, [key, value])
-    sk, sv = kv[:, 0], kv[:, 1]
+    sk, sv = dtypes.bits(kv[:, 0]), kv[:, 1]
     # The reference carries the validity flag through its sort. Padding has
     # the sentinel hash, which sorts last, and within equal hashes the sort
     # keeps row order, so the valid rows are exactly the first num_rows.
@@ -215,21 +248,47 @@ def hash_aggregate(table: Table, key: int, value: int, agg: str = "sum") -> Tabl
     # (the reference's scatter mode="drop"). Integer adds, minima and maxima
     # are exact in any order.
     gid = torch.where(valid, torch.cumsum(head, 0, dtype=torch.int32) - 1, cap).long()
-    lo, hi = torch.iinfo(dtype).min, torch.iinfo(dtype).max
-    buf = torch.zeros(cap + 1, dtype=dtype, device=dev)
-    if agg == "sum":
-        out_v = buf.index_add_(0, gid, sv)
-    elif agg == "count":
-        out_v = buf.index_add_(0, gid, torch.ones_like(sv))
+    if dtype.is_floating_point:
+        out_v = _float_aggregate(sv, gid, cap, agg)
+    elif agg in ("sum", "count"):
+        vals = dtypes.bits(sv) if agg == "sum" else torch.ones_like(dtypes.bits(sv))
+        out_v = torch.zeros(cap + 1, dtype=vals.dtype, device=dev).index_add_(0, gid, vals)
+        out_v = dtypes.from_bits(out_v[:cap], dtype)
     else:
-        out_v = buf.fill_(hi if agg == "min" else lo).scatter_reduce_(
-            0, gid, sv, "amin" if agg == "min" else "amax", include_self=True
+        # Minima and maxima of order keys, which order every integer type.
+        okey = dtypes.order_key(sv)
+        info = torch.iinfo(okey.dtype)
+        out_v = torch.full((cap + 1,), info.max if agg == "min" else info.min,
+                           dtype=okey.dtype, device=dev).scatter_reduce_(
+            0, gid, okey, "amin" if agg == "min" else "amax", include_self=True
         )
-    # Every row of a group has the group's key, so any writer gives it.
-    out_k = torch.zeros(cap + 1, dtype=dtype, device=dev).index_copy_(0, gid, sk)
-    out_k, out_v = out_k[:cap], out_v[:cap]
-    sort_keys = torch.where(iota < num_groups, out_k, hi)
-    data = stable_key_sort_rows(
-        [(sort_keys, torch.stack([out_k, out_v], dim=1))], live=num_groups
+        out_v = dtypes.from_order_key(out_v[:cap], dtype)
+    # A group's key is its last row's: one writer per slot.
+    tail = valid & torch.cat([head[1:] | ~valid[1:], one])
+    out_k = torch.zeros(cap + 1, dtype=sk.dtype, device=dev).index_copy_(
+        0, torch.where(tail, gid, cap), sk
+    )[:cap]
+    sort_keys = torch.where(
+        iota < num_groups, dtypes.order_key(dtypes.from_bits(out_k, dtype)), dtypes.order_max(dtype)
     )
-    return Table(data=data, num_rows=num_groups, names=("key", agg))
+    rows = torch.stack([out_k, dtypes.bits(out_v)], dim=1)
+    data = stable_key_sort_rows([(sort_keys, rows)], live=num_groups)
+    return Table(data=dtypes.from_bits(data, dtype), num_rows=num_groups, names=("key", agg))
+
+
+def _float_aggregate(sv: torch.Tensor, gid: torch.Tensor, cap: int, agg: str) -> torch.Tensor:
+    """A float aggregate of each group's values, ``[cap]``: groups are
+    contiguous in ``sv`` (valid rows first, ``gid`` the group of each, `cap`
+    for padding). Counts are added as ones (exact in any order); sums,
+    minima and maxima go group by group through `torch.segment_reduce`
+    from the reference's initial value (0, the type's largest and smallest
+    finite value), so every run gives the same bits."""
+    dev = sv.device
+    lengths = torch.zeros(cap + 1, dtype=torch.int64, device=dev).index_add_(
+        0, gid, torch.ones_like(gid)
+    )[:cap]
+    if agg == "count":
+        return lengths.to(sv.dtype)
+    info = torch.finfo(sv.dtype)
+    initial = {"sum": 0.0, "min": info.max, "max": info.min}[agg]
+    return torch.segment_reduce(sv, agg, lengths=lengths, unsafe=True, initial=initial)

@@ -20,7 +20,14 @@ key domain (one merge sort, run algebra, one un-merge sort, both through
 `stable_key_sort`), and `_emit` gathers both tables' rows into the output
 in one row gather.
 
-Output schema: table-1 columns, then table-2 columns without its key.
+Output schema: table-1 columns, then table-2 columns without its key, in
+the type of the two tables' concatenation (`columnar/dtypes.promote`).
+
+Keys of every table type are compared as their order keys
+(`columnar/dtypes.order_key`), so the sorts and the scan take int32/int64
+keys only, and a +inf or NaN key is dead like padding (in the JAX package a
++inf key equals its sentinel and a NaN key never equals another). Rows move
+as their bits, so a result holds each row's own bits (-0.0 stays -0.0).
 """
 
 from __future__ import annotations
@@ -29,10 +36,16 @@ from typing import NamedTuple
 
 import torch
 
+from pim_sort_merge_join_tpu_torch.columnar import dtypes
 from pim_sort_merge_join_tpu_torch.columnar.table import Table, key_sentinel
 from pim_sort_merge_join_tpu_torch.ops.kernels import join_scan
 from pim_sort_merge_join_tpu_torch.ops.kernels.gather import gather_rows
-from pim_sort_merge_join_tpu_torch.ops.sort import stable_key_sort, stable_key_sort_rows
+from pim_sort_merge_join_tpu_torch.ops.sort import (
+    narrow32,
+    sort_key_permutation,
+    stable_key_sort,
+    stable_key_sort_rows,
+)
 
 
 def _out_names(t1: Table, t2: Table, key2: int) -> tuple:
@@ -41,12 +54,26 @@ def _out_names(t1: Table, t2: Table, key2: int) -> tuple:
 
 
 def _out_buffer(t1: Table, t2: Table, key2: int, rows: int):
-    """The join's output buffer, not yet written, and each table's data in
-    its element type: ``(out, data1, data2, keep2)``."""
-    dtype = torch.promote_types(t1.dtype, t2.dtype)
+    """The join's output buffer, not yet written, its bits, and each
+    table's data converted to the output type, as bits: ``(out, out_bits,
+    data1, data2, keep2)``."""
+    dtype = dtypes.promote(t1.dtype, t2.dtype)
     out = torch.empty((rows, t1.ncol + t2.ncol - 1), dtype=dtype, device=t1.device)
     keep2 = [c for c in range(t2.ncol) if c != key2]
-    return out, t1.data.to(dtype).contiguous(), t2.data.to(dtype).contiguous(), keep2
+    data1, data2 = (dtypes.bits(t.data.to(dtype)).contiguous() for t in (t1, t2))
+    return out, dtypes.bits(out), data1, data2, keep2
+
+
+def _order_keys(t: Table, col: int, dtype: torch.dtype, mask: torch.Tensor | None = None):
+    """Order keys of column ``col`` of ``t`` taken as ``dtype`` (the two
+    tables' promoted type), rows outside ``mask`` (padding by default) the
+    sentinel. A table of another type is converted as the reference's
+    concatenation converts it, its own sentinel included."""
+    valid = t.valid_mask() if mask is None else mask
+    if t.dtype == dtype:
+        return torch.where(valid, dtypes.order_key(t.data[:, col]), dtypes.order_max(dtype))
+    masked = torch.where(valid, dtypes.bits(t.data[:, col]), dtypes.sentinel_bits(t.dtype))
+    return dtypes.order_key(dtypes.from_bits(masked, t.dtype).to(dtype))
 
 
 def _emit(
@@ -64,9 +91,9 @@ def _emit(
     (front-compacted); the others hold zeros, and their sources are not
     read. One row gather writes both tables' columns of the output.
     """
-    data, data1, data2, keep2 = _out_buffer(t1, t2, key2, src1.shape[0])
+    data, data_bits, data1, data2, keep2 = _out_buffer(t1, t2, key2, src1.shape[0])
     live = num_out.to(torch.int32)
-    gather_rows([(data1, src1), (data2, src2, keep2)], out=data, live=live)
+    gather_rows([(data1, src1), (data2, src2, keep2)], out=data_bits, live=live)
     return Table(data=data, num_rows=live, names=_out_names(t1, t2, key2))
 
 
@@ -87,24 +114,24 @@ def _run_starts(keys: torch.Tensor) -> torch.Tensor:
 
 def _match_info(t1: Table, t2: Table, key1: int, key2: int) -> _MatchInfo:
     """Per-t1-row (lo2, cnt2, occ) via the merged key domain."""
-    return _match_info_keys(t1.masked_keys(key1), t2.masked_keys(key2))
+    dtype = dtypes.promote(t1.dtype, t2.dtype)
+    return _match_info_keys(_order_keys(t1, key1, dtype), _order_keys(t2, key2, dtype))
 
 
 def _match_info_keys(k1: torch.Tensor, k2: torch.Tensor) -> _MatchInfo:
-    """Per-k1-element (lo2, cnt2, occ) from pre-masked key vectors.
+    """Per-k1-element (lo2, cnt2, occ) from pre-masked key vectors: order
+    keys (`columnar/dtypes.order_key`) or hashes, int32/int64.
 
-    One merge sort of both key columns with their concat positions (two
-    unique keys: table 1 first on ties), forward run algebra over the
-    merged keys, and one un-merge sort keyed on the position. Both sorts go
-    through `stable_key_sort`, so on CUDA tensors they run the `hbm_sort`
-    kernels.
+    One stable merge sort of both key columns, whose permutation is each
+    element's concat position (table 1 first on ties), forward run algebra
+    over the merged keys, and one un-merge sort keyed on the position. Both
+    sorts go through the sort seam (`sort_key_permutation`,
+    `stable_key_sort`), so on CUDA tensors they run the `hbm_sort` kernels.
     """
     cap1, cap2 = k1.shape[0], k2.shape[0]
     n = cap1 + cap2
     dev = k1.device
-    keys = torch.cat([k1, k2])
-    pos = torch.arange(n, dtype=torch.int32, device=dev)
-    mkeys, mpos = stable_key_sort((keys, pos), num_keys=2, unique_keys=True)
+    mkeys, mpos = sort_key_permutation(torch.cat([k1, k2]))
     is2 = (mpos >= cap1).to(torch.int32)
     one = torch.ones(1, dtype=torch.bool, device=dev)
     neq = mkeys[1:] != mkeys[:-1]
@@ -149,13 +176,13 @@ def _tail_broadcast(head: torch.Tensor, tail: torch.Tensor, vals: torch.Tensor) 
 
 
 def _narrow32(k: torch.Tensor) -> torch.Tensor:
-    """Map 64-bit integer keys whose values fit int32 onto int32.
+    """Map int64 keys whose values fit int32 onto int32.
 
     Order-preserving: the caller guarantees every valid key lies in
-    [INT32_MIN, INT32_MAX), and the 64-bit sentinel maps to the 32-bit one.
+    [INT32_MIN, INT32_MAX), and the 64-bit sentinel maps to the 32-bit one
+    (`ops/sort.narrow32` for the order keys of either 8-byte type).
     """
-    sent32 = torch.iinfo(torch.int32).max
-    return torch.where(k == key_sentinel(k.dtype), sent32, k).to(torch.int32)
+    return narrow32(k, torch.int64)
 
 
 def _merged_dest_plain(mkeys: torch.Tensor, mpos: torch.Tensor, cap1: int):
@@ -210,9 +237,13 @@ def _one_to_one_merged(
 ) -> Table:
     """1:1 join core over pre-masked key vectors; sortedness NOT required.
 
-    1. merge both key columns with their concat position (one 2-key sort,
-       unique keys; t1 first on ties); the scan gives each element its
-       output slot or the drop value;
+    ``k1``/``k2`` are int32/int64 order keys (`columnar/dtypes.order_key`,
+    the sentinel where masked) or hashes; ``narrow`` narrows those of an
+    8-byte integer table to int32.
+
+    1. merge both key columns: one stable sort, whose permutation is each
+       element's concat position (t1 first on ties); the scan gives each
+       element its output slot or the drop value;
     2. un-merge the slots back to row positions (one sort keyed on the
        carried position, a permutation inverse);
     3. per table, sort rows by output slot: matched rows land densely at
@@ -223,15 +254,12 @@ def _one_to_one_merged(
     dev = t1.device
 
     # `narrow is True`: an unresolved "auto" takes the wide path.
-    if narrow is True and k1.dtype == torch.int64:
-        k1, k2 = _narrow32(k1), _narrow32(k2)
+    key_dtype = dtypes.promote(t1.dtype, t2.dtype)
+    if narrow is True and k1.dtype == torch.int64 and key_dtype in (torch.int64, torch.uint64):
+        k1, k2 = narrow32(k1, key_dtype), narrow32(k2, key_dtype)
 
     # --- 1. merge the key columns (t1 wins ties) ---------------------------
-    keys = torch.cat([k1, k2])
-    pos = torch.arange(n, dtype=torch.int32, device=dev)
-    mkeys, mpos = stable_key_sort(
-        (keys, pos), algorithm=sort_algorithm, num_keys=2, unique_keys=True
-    )
+    mkeys, mpos = sort_key_permutation(torch.cat([k1, k2]))
     dest, num_out = _merged_dest(mkeys, mpos, cap1)
 
     # --- 2. un-merge: slots back to original row positions -----------------
@@ -253,10 +281,10 @@ def _one_to_one_merged(
         iota = torch.arange(cap, dtype=torch.int32, device=dev)
         return torch.where(d >= n, n + iota, d)
 
-    data, data1, data2, keep2 = _out_buffer(t1, t2, key2, cap1)
+    data, data_bits, data1, data2, keep2 = _out_buffer(t1, t2, key2, cap1)
     stable_key_sort_rows(
         [(_uniq(dest1, cap1), data1), (_uniq(dest2, cap2), data2, keep2)],
-        algorithm=sort_algorithm, out=data, live=num_out,
+        algorithm=sort_algorithm, out=data_bits, live=num_out,
     )
     return Table(data=data, num_rows=num_out, names=_out_names(t1, t2, key2))
 
@@ -272,8 +300,9 @@ def merge_join_one_to_one(
     sort_algorithm: str = "auto",
 ) -> Table:
     """Reference-semantics 1:1 merge join; output capacity is t1's."""
+    dtype = dtypes.promote(t1.dtype, t2.dtype)
     return _one_to_one_merged(
-        t1, t2, key2, t1.masked_keys(key1), t2.masked_keys(key2),
+        t1, t2, key2, _order_keys(t1, key1, dtype), _order_keys(t2, key2, dtype),
         narrow=narrow, narrow_data=narrow_data, sort_algorithm=sort_algorithm,
     )
 
@@ -296,8 +325,9 @@ def filter_join_one_to_one(
     validity); masked-out rows get sentinel keys and never match. Output
     equals the staged filter -> sort -> join path byte for byte.
     """
-    k1 = torch.where(mask1, t1.data[:, key1], key_sentinel(t1.dtype))
-    k2 = torch.where(mask2, t2.data[:, key2], key_sentinel(t2.dtype))
+    dtype = dtypes.promote(t1.dtype, t2.dtype)
+    k1 = _order_keys(t1, key1, dtype, mask1)
+    k2 = _order_keys(t2, key2, dtype, mask2)
     return _one_to_one_merged(
         t1, t2, key2, k1, k2, narrow=narrow, narrow_data=narrow_data,
         sort_algorithm=sort_algorithm,

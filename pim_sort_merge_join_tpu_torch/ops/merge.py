@@ -14,6 +14,7 @@ from typing import Sequence
 
 import torch
 
+from pim_sort_merge_join_tpu_torch.columnar import dtypes
 from pim_sort_merge_join_tpu_torch.columnar.table import Table
 from pim_sort_merge_join_tpu_torch.ops.sort import stable_key_sort_rows
 
@@ -23,18 +24,19 @@ def merge_sorted(t1: Table, t2: Table, key: int) -> Table:
 
     Both inputs share a schema and are sorted ascending on column ``key``.
     The output has capacity ``cap1 + cap2``, ``num_rows = n1 + n2`` and the
-    promoted type of the two tables (as the reference's concatenation);
-    ties keep run-1 rows first. Each run's padding carries its own type's
+    promoted type of the two tables (as the reference's concatenation,
+    `columnar/dtypes.promote`: int64 with uint64 gives float64); ties keep
+    run-1 rows first. Each run's padding carries its own type's
     sentinel, so run-1 padding lands before run-2 padding and valid rows
     stay a dense prefix.
     """
     if t1.ncol != t2.ncol:
         raise ValueError(f"schema mismatch: {t1.ncol} vs {t2.ncol} columns")
-    dtype = torch.promote_types(t1.dtype, t2.dtype)
-    keys = torch.cat([t1.masked_keys(key).to(dtype), t2.masked_keys(key).to(dtype)])
-    rows = torch.cat([t1.data.to(dtype), t2.data.to(dtype)])
+    dtype = dtypes.promote(t1.dtype, t2.dtype)
+    keys = torch.cat([dtypes.order_key(t.masked_keys(key).to(dtype)) for t in (t1, t2)])
+    rows = torch.cat([dtypes.bits(t.data.to(dtype)) for t in (t1, t2)])
     return Table(
-        data=stable_key_sort_rows([(keys, rows)]),
+        data=stable_key_sort_rows([(keys, dtypes.from_bits(rows, dtype))]),
         num_rows=(t1.num_rows + t2.num_rows).to(torch.int32),
         names=t1.names,
     )

@@ -1,12 +1,29 @@
-"""Host-side ingest checks (port of the three checks of `utils/validate.py`
-that `run_csv` uses): a narrowing cast or the narrow-key / narrow-data
-paths fail loudly instead of wrapping."""
+"""Invariant checks (port of `utils/validate.py`): host-side debugging
+tools that the query paths never call on their own, except the three
+ingest checks of `run_csv`.
+
+- `check_dtype_range`, `check_narrow_keys`, `check_narrow_data`: a narrowing
+  cast or the narrow-key / narrow-data paths fail loudly instead of wrapping;
+- `check_table`: a table's structural invariants, and its order on a column
+  in the type's order (`columnar/dtypes.order_key`);
+- `check_deterministic`: two runs of a pipeline give the same bytes.
+
+`check_sharded_table` waits for the port's multi-device path (ROADMAP,
+"Multi-device"), which brings the sharded tables it checks.
+"""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from pim_sort_merge_join_tpu_torch.columnar import dtypes
+from pim_sort_merge_join_tpu_torch.columnar.table import Table
 from pim_sort_merge_join_tpu_torch.engine.errors import MalformedInputError
+
+
+class ValidationError(AssertionError):
+    pass
 
 
 def check_dtype_range(rows: np.ndarray, dtype, name: str = "input") -> None:
@@ -48,3 +65,57 @@ def check_narrow_data(rows: np.ndarray, name: str = "input") -> None:
             "narrow_data=True requires every value to fit int32; disable it "
             "for this data"
         )
+
+
+def check_table(table: Table, *, sorted_by: int | None = None) -> None:
+    """Validate a table's structural invariants (reads it back): ``num_rows``
+    within the capacity, one name per column, and with ``sorted_by`` the
+    valid rows ascending on that column in the type's order."""
+    n = int(table.num_rows)
+    if not 0 <= n <= table.capacity:
+        raise ValidationError(f"num_rows {n} outside [0, capacity {table.capacity}]")
+    if table.names and len(table.names) != table.ncol:
+        raise ValidationError(f"{len(table.names)} names for {table.ncol} columns")
+    if sorted_by is not None and n > 1:
+        col = table.data[:n, sorted_by]
+        key = dtypes.order_key(col)
+        ok = key[1:] >= key[:-1]
+        if not bool(ok.all()):
+            bad = int(torch.argmin(ok.to(torch.int8)))
+            vals = col.cpu().numpy()
+            raise ValidationError(
+                f"column {sorted_by} not sorted ascending at row {bad}: "
+                f"{vals[bad]} > {vals[bad + 1]}"
+            )
+
+
+def _leaves(out) -> list[torch.Tensor]:
+    if isinstance(out, Table):
+        return [out.data, out.num_rows]
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _leaves(o)]
+    if isinstance(out, dict):
+        return [t for k in sorted(out) for t in _leaves(out[k])]
+    raise TypeError(f"check_deterministic: cannot compare a {type(out).__name__}")
+
+
+def _host_bytes(t: torch.Tensor) -> tuple:
+    a = t.detach().cpu().numpy()
+    return a.dtype.str, a.shape, a.tobytes()
+
+
+def check_deterministic(fn, *args, reps: int = 2) -> None:
+    """Run ``fn(*args)`` ``reps`` times; identical bytes out or raise.
+
+    Every tensor of the result (a table's whole buffer and row count, or
+    tensors in tuples, lists and dicts) must have the same type, shape and
+    bytes in every run, so an order that atomics or a scheduler decide
+    shows up as a difference.
+    """
+    first = [_host_bytes(t) for t in _leaves(fn(*args))]
+    for _ in range(reps - 1):
+        again = [_host_bytes(t) for t in _leaves(fn(*args))]
+        if again != first:
+            raise ValidationError("nondeterministic pipeline output")

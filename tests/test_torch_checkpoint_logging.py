@@ -288,6 +288,8 @@ def test_debug_log_run_csv_events_match_reference(tmp_path, quiet_loggers, kw):
     _assert_same(got, want)
     ej, ep = _events(bj), _events(bp)
     assert [e["event"] for e in ep] == ["ingest", "filter", "join", "materialize"]
+    # The port's ingest event also says which parser read the files.
+    assert ep[0].pop("parser") in ("native", "numpy")
     assert ep == ej
     by = {e["event"]: e for e in ep}
     assert by["filter"]["table1_rows_out"] == int(np.sum(rows1[:, 0] > 50))

@@ -111,8 +111,15 @@ def test_hashed_keys_padding_and_sentinel_preimage_match_reference(dtype):
 
 
 def test_hash_column_refuses_floats_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Float keys"):
-        phash.hash_column(torch.zeros(3, dtype=torch.float64))
+    """Float keys are ported (ROADMAP, "Float keys and general num_keys=2 on
+    CUDA"): they hash as the reference hashes them, -0.0 as +0.0
+    (`tests/test_torch_dtypes.py` has every type); the mixes still refuse
+    a width that is not theirs."""
+    keys = np.array([0.0, -0.0, 1.5, -np.inf, np.inf], np.float64)
+    want = np.asarray(jhash.hash_column(jnp.asarray(keys)))
+    got = phash.hash_column(torch.from_numpy(keys)).numpy().view(np.uint64) ^ np.uint64(2**63)
+    np.testing.assert_array_equal(got, want)
+    assert got[0] == got[1]
     with pytest.raises(ValueError):
         phash.mix32(torch.zeros(3, dtype=torch.int64))
 

@@ -312,7 +312,7 @@ def test_rows_move_through_the_row_gather_and_no_library_call(cuda, monkeypatch)
     kernels.reset_launch_counts()
     fused = join_ops.merge_join(t1, t2, 0, 0, presorted=False)
     counts = kernels.launch_counts()
-    assert counts["gather_rows"] == 1 and counts["hbm_sort_gather"] == 2  # wide keys: int64
+    assert counts["gather_rows"] == 1 and counts["hbm_sort_gather"] == 1  # the int64 key's
     monkeypatch.undo()
     s1c, s2c = (Table.from_numpy(r[np.argsort(r[:, 0], kind="stable")], device="cpu")
                 for r in (r1, r2))
@@ -691,3 +691,118 @@ def test_sort_key_permutation_on_card_matches_cpu(cuda, dtype):
         want = hs.sort_key_permutation(key)
         for g, w in zip(got, want):
             assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+
+
+# --- the other element types: order keys on the kernels ---------------------------
+
+
+def _typed_tables(dtype, join_mode):
+    import chip_smoke
+
+    if join_mode == "inner":
+        r1, r2, cfg = chip_smoke.staged_inputs(30_000, "auto")
+    else:
+        r1, r2, cfg = chip_smoke.slice_inputs(30_000)
+    shift = 2**63 if dtype == "uint64" else 0
+    r1, r2 = (chip_smoke.shifted_key(r, np.dtype(dtype), shift) for r in (r1, r2))
+    if dtype.startswith("float"):
+        r1, r2 = r1 + np.dtype(dtype).type(0.5), r2 + np.dtype(dtype).type(0.5)
+    return r1, r2, cfg, shift
+
+
+@pytest.mark.parametrize("algorithm", ["sort_merge", "hash"])
+@pytest.mark.parametrize("join_mode", ["one_to_one", "inner"])
+@pytest.mark.parametrize("dtype", ["uint64", "float64", "float32", "uint32"])
+def test_typed_pipelines_on_card_match_cpu(cuda, monkeypatch, dtype, join_mode, algorithm):
+    """Every join path on every other element type: the kernels sort and
+    scan order keys and move the rows' bits; the buffer equals the plain
+    path's bit for bit, and no 2-key sort proves its second key with
+    `torch.equal`."""
+    import dataclasses
+
+    from pim_sort_merge_join_tpu_torch import Predicate, QueryPipeline, Table
+    from pim_sort_merge_join_tpu_torch.columnar import dtypes
+    from pim_sort_merge_join_tpu_torch.ops import kernels
+
+    r1, r2, cfg, shift = _typed_tables(dtype, join_mode)
+    p = Predicate(0, ">", shift + cfg.predicate1.value)
+    cfg = dataclasses.replace(cfg, dtype=dtype, predicate1=p, predicate2=p, join_algorithm=algorithm)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("torch.equal reached on a CUDA query path")
+
+    monkeypatch.setattr(torch, "equal", refuse)
+    kernels.reset_launch_counts()
+    got = QueryPipeline(cfg, device=cuda).run_tables(
+        Table.from_numpy(r1, dtype=dtype, device=cuda), Table.from_numpy(r2, dtype=dtype, device=cuda))
+    assert sum(kernels.launch_counts().values()) > 0
+    monkeypatch.undo()
+    want = QueryPipeline(cfg, device="cpu").run_tables(
+        Table.from_numpy(r1, dtype=dtype, device="cpu"), Table.from_numpy(r2, dtype=dtype, device="cpu"))
+    assert got.data.dtype == want.data.dtype == dtypes.TORCH_DTYPES[dtype]
+    assert torch.equal(dtypes.bits(got.data).cpu(), dtypes.bits(want.data))
+    assert int(got.num_rows) == int(want.num_rows) > 0
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32", "uint64", "uint32"])
+def test_stable_key_sort_of_typed_keys_on_card_matches_cpu(cuda, dtype):
+    import chip_smoke
+    from pim_sort_merge_join_tpu_torch.columnar import dtypes
+    from pim_sort_merge_join_tpu_torch.ops import sort as sort_ops
+    from pim_sort_merge_join_tpu_torch.ops.kernels.hbm_sort import RUN
+
+    rng = np.random.default_rng(90)
+    pool = chip_smoke.edge_key_pools()[dtype]
+    for n in (1, RUN - 1, RUN + 1, 3 * RUN + 5):
+        keys = torch.from_numpy(rng.choice(pool, n))
+        payload = torch.from_numpy(rng.integers(-9, 9, n))
+        got = sort_ops.stable_key_sort((keys.to(cuda), payload.to(cuda)))
+        want = sort_ops.stable_key_sort((keys, payload))
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(dtypes.bits(g).cpu(), dtypes.bits(w))
+        rows = torch.stack([keys, keys], dim=1)
+        got = sort_ops.stable_key_sort_rows_with_key(keys.to(cuda), rows.to(cuda))
+        want = sort_ops.stable_key_sort_rows_with_key(keys, rows)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(dtypes.bits(g).cpu(), dtypes.bits(w))
+
+
+def test_edge_keys_on_card_match_cpu(cuda):
+    import chip_smoke
+
+    assert chip_smoke.phase_edge_keys(np.random.default_rng(91))["checked"] > 0
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_float_hash_aggregate_on_card_is_deterministic(cuda, dtype):
+    """Float sums on the card (`torch.segment_reduce`) add each group in a
+    fixed order: two runs give the same bytes. That order is not the plain
+    path's row order, so a group's sum may differ from it by the rounding
+    of a sum of n terms, n * eps * (the sum of their magnitudes), and for
+    float64 by at most 1e-12 of the sum here; count, min and max are
+    exact."""
+    from pim_sort_merge_join_tpu_torch import Table
+    from pim_sort_merge_join_tpu_torch.ops import hash_join as hj
+    from pim_sort_merge_join_tpu_torch.utils import validate
+
+    rng = np.random.default_rng(92)
+    rows = np.column_stack([rng.integers(0, 300, 60_000), rng.standard_normal(60_000) * 1e3])
+    rows = rows.astype(dtype)
+    card, host = Table.from_numpy(rows, device=cuda, dtype=dtype), Table.from_numpy(rows, device="cpu", dtype=dtype)
+    magnitude = np.abs(rows)
+    magnitude[:, 0] = rows[:, 0]
+    abs_sum = hj.hash_aggregate(Table.from_numpy(magnitude, device="cpu", dtype=dtype), 0, 1, "sum")
+    counts = hj.hash_aggregate(host, 0, 1, "count").data[:, 1].double().numpy()
+    bound = counts * np.finfo(dtype).eps * abs_sum.data[:, 1].double().numpy()
+    for agg in ("sum", "count", "min", "max"):
+        validate.check_deterministic(lambda t: hj.hash_aggregate(t, 0, 1, agg), card)
+        got, want = hj.hash_aggregate(card, 0, 1, agg), hj.hash_aggregate(host, 0, 1, agg)
+        assert int(got.num_rows) == int(want.num_rows) == 300
+        g, w = got.data.cpu().double().numpy(), want.data.double().numpy()
+        np.testing.assert_array_equal(g[:, 0], w[:, 0])
+        if agg == "sum":
+            assert (np.abs(g[:, 1] - w[:, 1]) <= bound).all()
+            if dtype == "float64":
+                np.testing.assert_allclose(g[:, 1], w[:, 1], rtol=1e-12)
+        else:
+            np.testing.assert_array_equal(g[:, 1], w[:, 1])

@@ -109,13 +109,9 @@ def test_resolve_narrow_matches_reference(k1, k2):
     ],
 )
 def test_unported_config_values_raise(kw):
-    """Float dtypes are still refused, naming their ROADMAP item; the hash
-    join, checkpoint directory and debug log are ported and construct, and
-    carry across from the JAX config unchanged."""
-    if kw.get("dtype") == "float64":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            EngineConfig(**kw)
-        return
+    """Every value of the JAX config is ported now (float dtypes since
+    `columnar/dtypes`): each constructs and carries across from the JAX
+    config unchanged."""
     cfg = EngineConfig(**kw)
     for name, value in kw.items():
         assert getattr(cfg, name) == value
