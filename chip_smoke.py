@@ -69,9 +69,25 @@ Phases, in order; any failure exits non-zero:
      `merge_sorted`, equal to the plain path on CPU tensors;
  13. the command line (`runner.cli run`: default, ``--dtype float64``,
      ``--join-algorithm hash``, ``--profile``) and the launcher
-     (`runner.run`) as subprocesses on the 100k pair, every output equal.
+     (`runner.run`) as subprocesses on the 100k pair, every output equal;
+ 14. the multi-device engine (`engine/distributed.py`): (a) NCCL at world
+     size 1 in this process, the fused 1:1 query on the phase 5 tables
+     through `DistributedQueryPipeline`, equal to `QueryPipeline.run_tables`
+     row for row; (b) 4 ranks spawned on cuda:0 in one Gloo group (NCCL
+     takes one rank per card; Gloo takes the CUDA tensors and stages them
+     through the host): range 1:1, hash 1:1, inner join (path A's tables)
+     and `run_aggregate` at 10M rows/table, Zipf keys 1:1 and inner with
+     heavy hitters at 2M, the inner join with the bitonic table sorts
+     (``sort_algorithm="pallas_bitonic"``) at 2M, `run_tables_resumable`
+     then a resume at 2M, each
+     equal to the single-device rows (in order for range partitioning, as a
+     multiset otherwise), every key on one rank (heavy keys excepted), each
+     rank's rows in key order; per rank the exchange and the local join by
+     CUDA events, the whole query by host clock between barriers, rows and
+     bytes exchanged, the exchange's bound over the Gloo route's measured
+     rate, and peak memory.
 Each path runs with the launch counts set to 0 just before and read just
-after: exactly the kernels of that path must have run.
+after: exactly the kernels of that path must have run (on every rank).
 
 Each kernel's record carries its time, its plain version's, the time of the
 one PyTorch call that computes the same function where there is one
@@ -88,6 +104,7 @@ package beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 import os
@@ -1794,6 +1811,359 @@ def phase_cli() -> dict:
     return rec
 
 
+# --- phase 14: the multi-device engine ---------------------------------------
+
+DIST_RANKS = 4
+# Every rank packs its rows with the int32 destination as the key (packed-32
+# element, one row gather) and compacts what arrives with a row gather, then
+# runs the local join of its path: the fused join's kernels on the 1:1 runs;
+# on the inner and aggregate runs the local table sorts, the broadcast side's
+# pack and union sort, and the inner join's or the aggregate's kernels;
+# with ``sort_algorithm="pallas_bitonic"`` the inner join's local table
+# sorts run the bitonic kernel.
+DIST_FUSED_KERNELS = FUSED_KERNELS
+DIST_STAGED_KERNELS = STAGED_KERNELS
+DIST_STAGED_BITONIC_KERNELS = STAGED_BITONIC_KERNELS
+
+
+def dist_cases(n: int, nz: int) -> tuple[dict, list[dict]]:
+    """Phase 14's inputs (name -> two tables) and runs. ``n`` rows a table
+    for the range, hash, inner and aggregate runs (the phase 5 and path A
+    tables), ``nz`` for the Zipf, bitonic inner and resumable runs (a
+    rank's received table, about ``nz / 2`` rows at the exchange slack of
+    2, stays within the bitonic kernel's 2^21). The Zipf tables keep
+    every row (``col1 > 0``); their hottest key holds about a quarter of
+    the rows, and the heavy-hitter fraction of 0.05 of the pooled sample
+    makes it (and the next ones) heavy. The keys below the first splitter
+    still hold about half the rows, so the Zipf runs take an exchange slack
+    of 3 and a join slack of 2. The Zipf inner join pairs the Zipf
+    table with one whose keys are 1..nz, each once, so that its cross
+    products stay small."""
+    import dataclasses
+
+    from pim_sort_merge_join_tpu_torch import EngineConfig, Predicate
+    from pim_sort_merge_join_tpu_torch.columnar.generate import generate_table
+
+    r1, r2, cfg = slice_inputs(n)
+    a1, a2, acfg = staged_inputs(n, "auto")
+    b1, b2, bcfg = staged_inputs(nz, "pallas_bitonic")
+    f1, f2, fcfg = slice_inputs(nz)
+    z1 = generate_table(nz, seed=1, key_distribution="zipf")
+    z2 = generate_table(nz, seed=2, key_distribution="zipf")
+    u2 = f2.copy()
+    u2[:, 0] = np.random.default_rng(3).permutation(nz) + 1
+    every = Predicate(0, ">", 0)
+    zcfg = EngineConfig(predicate1=every, predicate2=every, heavy_hitter_fraction=0.05,
+                        exchange_slack=3.0, join_slack=2.0)
+    inputs = {"fused": (r1, r2), "staged": (a1, a2), "zipf": (z1, z2), "zipf_unique": (z1, u2),
+              "fused_small": (f1, f2), "staged_small": (b1, b2)}
+    cases = [
+        {"label": "range 1:1", "inputs": "fused", "kind": "join", "cfg": cfg, "order": True,
+         "kernels": DIST_FUSED_KERNELS, "to_numpy": True},
+        {"label": "hash 1:1", "inputs": "fused", "kind": "join",
+         "cfg": dataclasses.replace(cfg, partition_scheme="hash"), "order": False,
+         "kernels": DIST_FUSED_KERNELS},
+        {"label": "inner", "inputs": "staged", "kind": "join", "cfg": acfg, "order": False,
+         "kernels": DIST_STAGED_KERNELS},
+        {"label": "aggregate sum", "inputs": "staged", "kind": "aggregate", "cfg": acfg,
+         "order": True, "kernels": DIST_STAGED_KERNELS},
+        {"label": "zipf 1:1", "inputs": "zipf", "kind": "join", "cfg": zcfg, "order": False,
+         "heavy": True, "kernels": DIST_FUSED_KERNELS},
+        {"label": "zipf inner", "inputs": "zipf_unique", "kind": "join",
+         "cfg": dataclasses.replace(zcfg, join_mode="inner"), "order": False, "heavy": True,
+         "kernels": DIST_STAGED_KERNELS},
+        {"label": "inner bitonic", "inputs": "staged_small", "kind": "join", "cfg": bcfg,
+         "order": False, "kernels": DIST_STAGED_BITONIC_KERNELS},
+        {"label": "resumable", "inputs": "fused_small", "kind": "resumable", "cfg": fcfg,
+         "order": True, "kernels": DIST_FUSED_KERNELS},
+    ]
+    return inputs, cases
+
+
+def dist_single(case: dict, r1, r2, device: str = "cuda") -> np.ndarray:
+    """The single-device rows a run is held against: `QueryPipeline.run_tables`,
+    or `hash_aggregate` of table 1 for the aggregate."""
+    from pim_sort_merge_join_tpu_torch import QueryPipeline, Table
+    from pim_sort_merge_join_tpu_torch.ops.hash_join import hash_aggregate
+
+    if case["kind"] == "aggregate":
+        return hash_aggregate(Table.from_numpy(r1, device=device), 0, 1, "sum").to_numpy()
+    t1, t2 = Table.from_numpy(r1, device=device), Table.from_numpy(r2, device=device)
+    return QueryPipeline(case["cfg"], device=device).run_tables(t1, t2).to_numpy()
+
+
+def _span_ms(fn, device):
+    """``fn()``'s result and its milliseconds: CUDA events on the card, the
+    host clock on the CPU."""
+    import torch
+
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def dist_rank(directory: str, cases: list, device: str) -> dict:
+    """One rank of phase 14 (started by `spawn_simulator`, Gloo): every run
+    of ``cases`` on ``device``, each with the launch counts set to 0 just
+    before and read just after; this rank's output rows go to
+    ``directory/<run>.rank<r>.npy`` and its record to
+    ``directory/rank<r>.json``. Then each run again, warm, whole, between
+    barriers (host clock), and each join run once more, its exchange and
+    its local join apart (CUDA events)."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from pim_sort_merge_join_tpu_torch.engine import distributed as dq
+    from pim_sort_merge_join_tpu_torch.exchange import collectives
+    from pim_sort_merge_join_tpu_torch.ops import kernels
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        collectives.barrier()
+
+    # The Gloo route's rate: 256 MiB from each rank in one all_to_all (the
+    # 10M runs move 160 MiB of blocks a table).
+    probe = torch.zeros((world, (32 << 20) // world), dtype=torch.int64, device=dev)
+    collectives.all_to_all(probe)
+    sync()
+    _, probe_ms = _span_ms(lambda: collectives.all_to_all(probe), dev)
+    recs = {"route": {"bytes": probe.numel() * 8, "ms": probe_ms,
+                      "gb_per_s": probe.numel() * 8 / probe_ms / 1e6}}
+    for case in cases:
+        label, cfg = case["label"], case["cfg"]
+        r1, r2 = (np.load(os.path.join(directory, f"{case['inputs']}.{i}.npy"), mmap_mode="r")
+                  for i in (1, 2))
+        t1 = dq.ShardedTable.from_numpy(r1, device=dev)
+        t2 = dq.ShardedTable.from_numpy(r2, device=dev)
+        pipe = dq.DistributedQueryPipeline(cfg, device=dev)
+        if case["kind"] == "resumable":
+            cfg = dataclasses.replace(cfg, checkpoint_dir=os.path.join(directory, "checkpoint"))
+            pipe = dq.DistributedQueryPipeline(cfg, device=dev)
+        run = {"join": lambda: pipe.run_tables(t1, t2),
+               "aggregate": lambda: pipe.run_aggregate(t1, key=0, value=1, agg="sum"),
+               "resumable": lambda: pipe.run_tables_resumable(t1, t2)}[case["kind"]]
+        sync()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run()
+        sync()
+        rec = {"first_query_ms": (time.perf_counter() - t0) * 1e3,
+               "launches": {k: v for k, v in kernels.launch_counts().items() if v},
+               "rows": int(out.num_rows), "capacity": out.capacity}
+        if dev.type == "cuda":
+            rec["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        rows = out.data[:rec["rows"]].cpu().numpy()
+        np.save(os.path.join(directory, f"{label}.rank{rank}.npy"), rows)
+        if case.get("to_numpy"):
+            rec["to_numpy_sha256"] = hashlib.sha256(out.to_numpy().tobytes()).hexdigest()
+        if case["kind"] == "resumable":
+            zeros = dq.ShardedTable.from_numpy(np.zeros(r1.shape, r1.dtype), device=dev)
+            again = dq.DistributedQueryPipeline(cfg, device=dev)
+            stages = again.checkpoint_stages()
+            sync()
+            kernels.reset_launch_counts()
+            resumed = again.run_tables_resumable(zeros, zeros)
+            sync()
+            rec["resume_launches"] = {k: v for k, v in kernels.launch_counts().items() if v}
+            rec["resumed_from"] = stages
+            rec["resume_equal"] = bool(int(resumed.num_rows) == rec["rows"] and torch.equal(
+                resumed.data, out.data))
+        if case["kind"] != "resumable":
+            # Warm: the whole query again between barriers (host clock).
+            sync()
+            t0 = time.perf_counter()
+            run()
+            sync()
+            rec["warm_query_ms"] = (time.perf_counter() - t0) * 1e3
+        if case["kind"] == "join":
+            # And once more, the exchange and the local join apart.
+            cap = pipe._exchange_capacity(t1, t2)
+            rcfg = pipe._resolved_config(t1, t2)
+            sync()
+            (s1, s2, _), rec["exchange_ms"] = _span_ms(
+                lambda: dq.distributed_exchange_core(t1, t2, rcfg, exchange_capacity=cap), dev)
+            _, rec["join_ms"] = _span_ms(lambda: dq.distributed_join_core(s1, s2, rcfg), dev)
+            sync()
+            bucket = -(-cap // world)
+            rec["rows_received"] = int(s1.num_rows) + int(s2.num_rows)
+            rec["bytes_received"] = rec["rows_received"] * t1.ncol * 8
+            # Both tables' padded blocks, sent and received once each.
+            rec["wire_bytes"] = 2 * world * bucket * t1.ncol * 8
+            # The least time over the route: the rows any exchange must
+            # move; and the padded blocks this one moves.
+            rate = recs["route"]["gb_per_s"] * 1e6
+            rec["exchange_bound_ms"] = rec["bytes_received"] / rate
+            rec["padded_bound_ms"] = rec["wire_bytes"] / rate
+        recs[label] = rec
+        del t1, t2, out, pipe
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    with open(os.path.join(directory, f"rank{rank}.json"), "w") as f:
+        json.dump(recs, f)
+    return recs
+
+
+def in_hash_order(rows: np.ndarray) -> np.ndarray:
+    """``rows`` stably sorted by a 64-bit hash of the whole row. Two arrays
+    come out equal when they hold the same multiset of rows (a `lexsort`
+    of 3M rows of 7 columns takes 8 s); distinct rows of equal hash can
+    only make equal multisets compare unequal, never the reverse."""
+    mult = np.random.default_rng(0).integers(1, 2**63, rows.shape[1], dtype=np.uint64) | 1
+    h = (rows.astype(np.uint64) * mult).sum(axis=1, dtype=np.uint64)
+    return rows[np.argsort(h, kind="stable")]
+
+
+def check_dist_case(case: dict, want: np.ndarray, blocks: list, recs: list) -> None:
+    """Hold one run's rank blocks against the single-device rows: in rank
+    order for range partitioning, as a multiset otherwise; every key on one
+    rank (heavy keys excepted, which skew spreads), each rank's rows in key
+    order, and each rank's launches exactly the kernels of the path."""
+    from pim_sort_merge_join_tpu_torch.exchange.skew import max_heavy_hitters
+
+    label = case["label"]
+    got = np.concatenate(blocks)
+    check(got.shape == want.shape, f"distributed {label}: {got.shape} rows vs single {want.shape}")
+    if case["order"]:
+        check(np.array_equal(got, want), f"distributed {label}: rows differ from the single-device "
+              "rows in order")
+    else:
+        check(np.array_equal(in_hash_order(got), in_hash_order(want)),
+              f"distributed {label}: the rows differ from the single-device rows as a multiset")
+    for r, b in enumerate(blocks):
+        check(bool((np.diff(b[:, 0]) >= 0).all()), f"distributed {label}: rank {r} not in key order")
+    keys = [np.unique(b[:, 0]) for b in blocks]
+    allk, cnt = np.unique(np.concatenate(keys), return_counts=True)
+    spread = allk[cnt > 1]
+    if case.get("heavy"):
+        hot = np.bincount(want[:, 0]).argmax()
+        check(hot in spread, f"distributed {label}: the hottest key {hot} is on one rank: no heavy "
+              "hitter was detected")
+        k_max = max_heavy_hitters(case["cfg"].heavy_hitter_fraction, len(blocks))
+        check(len(spread) <= k_max, f"distributed {label}: {len(spread)} keys on several ranks, "
+              f"more than {k_max} heavy hitters")
+    else:
+        check(spread.size == 0, f"distributed {label}: keys {spread[:5]} on several ranks")
+    for r, rec in enumerate(recs):
+        runs = {"launches": rec["launches"], **({"resume_launches": rec["resume_launches"]}
+                                               if "resume_launches" in rec else {})}
+        for what, launches in runs.items():
+            check(set(launches) == case["kernels"], f"distributed {label}: rank {r} {what} "
+                  f"{sorted(launches)}, the path's kernels are {sorted(case['kernels'])}")
+        if case["kind"] == "resumable":
+            check(rec["resumed_from"] == ["exchanged", "joined"] and rec["resume_equal"],
+                  f"distributed {label}: rank {r} resumed from {rec['resumed_from']}, equal "
+                  f"{rec['resume_equal']}")
+    if case.get("to_numpy"):
+        import hashlib
+
+        sha = hashlib.sha256(got.tobytes()).hexdigest()
+        check(all(rec["to_numpy_sha256"] == sha for rec in recs),
+              f"distributed {label}: to_numpy differs from the ranks' blocks")
+
+
+def phase_distributed(card: str, n: int = 10_000_000, nz: int = 2_000_000) -> dict:
+    """Phase 14: the multi-device engine on the card.
+
+    (a) NCCL at world size 1 in this process: the fused 1:1 query on the
+    phase 5 tables through `DistributedQueryPipeline`, equal to
+    `QueryPipeline.run_tables` row for row, with the fused kernels.
+    (b) `DIST_RANKS` ranks spawned on cuda:0 in one Gloo group (NCCL takes
+    one rank per card; Gloo stages the CUDA tensors through the host):
+    every run of `dist_cases`, held by `check_dist_case` against the
+    single-device rows computed here on the card.
+    """
+    import torch
+    import torch.distributed as dist
+
+    from pim_sort_merge_join_tpu_torch import QueryPipeline, Table
+    from pim_sort_merge_join_tpu_torch.engine.distributed import (
+        DistributedQueryPipeline,
+        ShardedTable,
+    )
+    from pim_sort_merge_join_tpu_torch.runner.simulator import spawn_simulator
+
+    t_phase = time.perf_counter()
+    inputs, cases = dist_cases(n, nz)
+    spans = {"inputs_s": time.perf_counter() - t_phase}
+    r1, r2 = inputs["fused"]
+    single = QueryPipeline(cases[0]["cfg"]).run_tables(Table.from_numpy(r1), Table.from_numpy(r2))
+    want = single.to_numpy()
+    del single
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        pipe = DistributedQueryPipeline(cases[0]["cfg"])
+        t1, t2 = ShardedTable.from_numpy(r1), ShardedTable.from_numpy(r2)
+        out, launches_a = run_counted(lambda: pipe.run_tables(t1, t2), DIST_FUSED_KERNELS,
+                                      "distributed NCCL 1 rank")
+        check(np.array_equal(out.to_numpy(), want),
+              "distributed NCCL 1 rank: rows differ from QueryPipeline.run_tables")
+        nccl_ms = host_ms(lambda: pipe.run_tables(t1, t2))
+        del pipe, t1, t2, out
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    log(f"distributed (a) NCCL world size 1, range 1:1 {n}: {want.shape[0]} rows equal to "
+        f"QueryPipeline.run_tables; launches {launches_a}; run_tables {nccl_ms:.3f} ms (host, "
+        f"median of 3); {card}")
+    rec = {"nccl_1_rank": {"rows": want.shape[0], "ms": nccl_ms, "launches": launches_a}}
+    spans["nccl_s"] = time.perf_counter() - t_phase - sum(spans.values())
+    with tempfile.TemporaryDirectory() as d:
+        for name, (a, b) in inputs.items():
+            np.save(os.path.join(d, f"{name}.1.npy"), a)
+            np.save(os.path.join(d, f"{name}.2.npy"), b)
+        spans["save_s"] = time.perf_counter() - t_phase - sum(spans.values())
+        wants = {c["label"]: dist_single(c, *inputs[c["inputs"]]) for c in cases}
+        spans["single_s"] = time.perf_counter() - t_phase - sum(spans.values())
+        del inputs, r1, r2
+        torch.cuda.empty_cache()
+        spawn_simulator(dist_rank, DIST_RANKS, d, cases, "cuda:0", timeout=300)
+        spans["ranks_s"] = time.perf_counter() - t_phase - sum(spans.values())
+        recs = []
+        for r in range(DIST_RANKS):
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+        for case in cases:
+            label = case["label"]
+            blocks = [np.load(os.path.join(d, f"{label}.rank{r}.npy")) for r in range(DIST_RANKS)]
+            check_dist_case(case, wants[label], blocks, [rr[label] for rr in recs])
+            rec[label] = {"rows": int(wants[label].shape[0]),
+                          "ranks": [rr[label] for rr in recs]}
+    spans["checks_s"] = time.perf_counter() - t_phase - sum(spans.values())
+    rec["route"] = [rr["route"] for rr in recs]
+    rec["phase_s"] = {"total": time.perf_counter() - t_phase, **spans}
+    log(f"distributed (b) {DIST_RANKS} ranks on cuda:0 over Gloo, every run equal to "
+        f"the single-device rows, keys co-located, each rank in key order, each rank's launches "
+        f"the path's; {card}; Gloo route GB/s by rank "
+        f"{[round(r['gb_per_s'], 3) for r in rec['route']]}; phase s {json.dumps(rec['phase_s'])}")
+    per_rank = ("first_query_ms", "warm_query_ms", "exchange_ms", "join_ms", "exchange_bound_ms",
+                "padded_bound_ms", "rows_received", "bytes_received", "wire_bytes", "rows",
+                "peak_gb")
+    for case in cases:
+        ranks = rec[case["label"]]["ranks"]
+        summary = {k: [r[k] for r in ranks] for k in per_rank if k in ranks[0]}
+        log(f"  distributed {case['label']}: {rec[case['label']]['rows']} rows; per rank "
+            + json.dumps(summary) + f"; launches (rank 0) {ranks[0]['launches']}"
+            + (f", resumed {ranks[0]['resume_launches']}" if "resume_launches" in ranks[0] else ""))
+    return rec
+
+
 # The launch counters each entry of the `kernels` line counts.
 LAUNCH_KEYS = {
     "hbm_sort_chunk": {"hbm_sort_chunk"}, "hbm_sort_merge": {"hbm_sort_merge"},
@@ -1942,6 +2312,7 @@ def main() -> int:
     phase_csv_debug_log()
     phase_edge_keys(rng)
     phase_cli()
+    phase_distributed(card)
 
     src = "pim_sort_merge_join_tpu_torch/csrc/"
     ref = "pim_sort_merge_join_tpu/ops/pallas/"

@@ -36,9 +36,9 @@ class Predicate:
 class EngineConfig:
     """All runtime tunables of the engine; defaults equal the JAX package's.
 
-    Fields that only the multi-device path reads (mesh, exchange, skew) are
-    kept so that any reference config carries across; this port's
-    single-device path ignores them.
+    Fields that only the multi-device path reads (partition scheme,
+    exchange, skew) are ignored by the single-device path; ``mesh_axis``
+    is kept only so that any reference config carries across.
     """
 
     predicate1: Predicate = Predicate()

@@ -78,6 +78,29 @@ def pipeline_core(t1: Table, t2: Table, config: EngineConfig) -> Table:
     )
 
 
+def narrow_extremes(d1: torch.Tensor, d2: torch.Tensor, k1: int, k2: int):
+    """The order-key extremes the narrow probe reads, over the raw buffers
+    of two tables, padding included (padding zeros keep the range inside
+    int32, never push a valid value out): ``lo = [min key, min value]``
+    and ``hi = [max key, max value]``, on the tables' device. Order keys,
+    since torch has no ``min`` for uint64."""
+    ok1, ok2 = dtypes.order_key(d1), dtypes.order_key(d2)
+    lo = torch.stack([torch.minimum(ok1[:, k1].min(), ok2[:, k2].min()),
+                      torch.minimum(ok1.min(), ok2.min())])
+    hi = torch.stack([torch.maximum(ok1[:, k1].max(), ok2[:, k2].max()),
+                      torch.maximum(ok1.max(), ok2.max())])
+    return lo, hi
+
+
+def narrow_fits(lo: torch.Tensor, hi: torch.Tensor, dtype: torch.dtype) -> tuple[bool, bool]:
+    """``(keys fit int32, every value fits int32)`` from `narrow_extremes`."""
+    # The order key of a uint64 value v is v - 2^63.
+    shift = 2**63 if dtypes.is_unsigned(dtype) else 0
+    klo, dlo, khi, dhi = (v + shift for v in torch.cat([lo, hi]).tolist())
+    info = np.iinfo(np.int32)
+    return bool(klo >= info.min and khi < info.max), bool(dlo >= info.min and dhi < info.max)
+
+
 def _resolve_device(device: str | torch.device | None) -> torch.device:
     dev = resolve_device(device)  # raises when the card is asked for and absent
     if dev.type not in ("cuda", "cpu"):
@@ -105,31 +128,13 @@ class QueryPipeline:
         self.resolved_narrow_data: bool | None = None
 
     def _resolve_narrow_device(self, t1: Table, t2: Table) -> tuple[bool, bool]:
-        """Resolve narrow_keys/narrow_data="auto" from the device tables.
-
-        Probes the raw buffers, padding included: padding zeros keep the
-        range inside int32, never push a valid value out. One readback.
-        Returns (keys_fit, all_data_fits); (False, False) for a type that
-        cannot narrow. Extremes are taken on order keys, since torch has no
-        ``min`` for uint64.
-        """
+        """Resolve narrow_keys/narrow_data="auto" from the device tables
+        (`narrow_extremes`, one readback). Returns (keys_fit,
+        all_data_fits); (False, False) for a type that cannot narrow."""
         if not self.config.narrowable():
             return False, False
-        k1c, k2c = self.config.join_key1, self.config.join_key2
-        ok1, ok2 = dtypes.order_key(t1.data), dtypes.order_key(t2.data)
-        probe = torch.stack([
-            torch.minimum(ok1[:, k1c].min(), ok2[:, k2c].min()),
-            torch.maximum(ok1[:, k1c].max(), ok2[:, k2c].max()),
-            torch.minimum(ok1.min(), ok2.min()),
-            torch.maximum(ok1.max(), ok2.max()),
-        ])
-        # The order key of a uint64 value v is v - 2^63.
-        shift = 2**63 if dtypes.is_unsigned(t1.dtype) else 0
-        klo, khi, dlo, dhi = (v + shift for v in probe.tolist())
-        info = np.iinfo(np.int32)
-        keys_fit = bool(klo >= info.min and khi < info.max)
-        data_fit = bool(dlo >= info.min and dhi < info.max)
-        return keys_fit, data_fit
+        lo, hi = narrow_extremes(t1.data, t2.data, self.config.join_key1, self.config.join_key2)
+        return narrow_fits(lo, hi, t1.dtype)
 
     def _check_devices(self, *tables: Table) -> None:
         for t in tables:

@@ -4,9 +4,10 @@
 package's parser) is compiled with ``g++ -O3 -shared -fPIC -pthread`` at
 first use into ``build/native/`` at the root of the checkout, under a
 name that carries a hash of the source and the flags, so a stale build is
-never loaded; one lock serializes the build within a process and the
-library is written under a temporary name and moved into place, so
-concurrent builds never see a partial file. Without a compiler
+never loaded; a lock across processes (`utils/build_lock.py`) holds the
+check and the build, so processes that reach first use together build
+once, and the library is written under a temporary name and moved into
+place, so no reader sees a partial file. Without a compiler
 `available` is False and the callers in `columnar/csv_io.py` keep their
 numpy path, as the JAX package does.
 """
@@ -23,6 +24,8 @@ from pathlib import Path
 from typing import Optional
 
 import numpy as np
+
+from pim_sort_merge_join_tpu_torch.utils.build_lock import build_lock
 
 SOURCE = Path(__file__).resolve().with_name("csv_parser.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
@@ -52,7 +55,13 @@ def build() -> Path:
     cxx = shutil.which(os.environ.get("CXX", "g++"))
     if cxx is None:
         raise RuntimeError("g++ not found: the native CSV parser needs a C++ compiler")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with build_lock(BUILD_DIR):
+        if not path.exists():  # another process may have built it meanwhile
+            _compile(cxx, path)
+    return path
+
+
+def _compile(cxx: str, path: Path) -> None:
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
     done = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
                           capture_output=True, text=True, timeout=300)
@@ -60,7 +69,6 @@ def build() -> Path:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"g++ failed ({done.returncode}):\n{done.stderr}")
     os.replace(tmp, path)
-    return path
 
 
 def _load() -> Optional[ctypes.CDLL]:

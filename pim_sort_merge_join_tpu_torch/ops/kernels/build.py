@@ -5,7 +5,9 @@ together, and the objects are linked into one shared library with a plain C
 interface (no PyTorch headers, so the build takes seconds). The library's
 file name carries a hash of the sources and flags,
 so a stale build is never loaded; it is written under a temporary name and
-moved into place, so concurrent builders never see a partial file.
+moved into place, so no reader sees a partial file. The check and the
+build hold a lock across processes (`utils/build_lock.py`), so ranks that
+reach first use together build once and the others load that library.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from pim_sort_merge_join_tpu_torch.utils.build_lock import build_lock
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -61,7 +65,13 @@ def build() -> Path:
     path = library_path()
     if path.exists():
         return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with build_lock(BUILD_DIR):
+        if not path.exists():  # another process may have built it meanwhile
+            _compile(path)
+    return path
+
+
+def _compile(path: Path) -> None:
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
     compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
@@ -80,7 +90,6 @@ def build() -> Path:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{stderr}")
     os.replace(tmp, path)
-    return path
 
 
 def library() -> ctypes.CDLL:

@@ -7,9 +7,12 @@ Subcommands:
 
 ``run`` takes the JAX CLI's flags with its defaults and ``--dtype``
 choices, and runs on the card; ``--device cpu`` is the only way onto the
-host. ``--distributed`` and ``--simulator`` wait for the port's
-multi-device path, and ``bench`` for the port's H100 benchmark: they exit
-with status 2 and say so.
+host. ``--distributed`` runs the multi-device pipeline over the process
+group that torchrun set up (``--backend`` names its backend), or over one
+rank when there is none; ``--simulator N`` runs it on N Gloo ranks on the
+CPU (`runner/simulator.py`). With range partitioning both write the
+single-device query's bytes. ``bench`` waits for the port's H100
+benchmark: it exits with status 2 and says so.
 """
 
 from __future__ import annotations
@@ -18,7 +21,6 @@ import argparse
 import contextlib
 import sys
 
-MULTI_DEVICE = 'ROADMAP queue 1, "Multi-device"'
 BENCHMARK = 'ROADMAP queue 1, "The H100 benchmark"'
 
 
@@ -38,9 +40,13 @@ def _add_run_parser(sub):
     p.add_argument("--join-mode", choices=["one_to_one", "inner"], default="one_to_one")
     p.add_argument("--join-algorithm", choices=["sort_merge", "hash"], default="sort_merge")
     p.add_argument("--distributed", action="store_true",
-                   help=f"shard over several devices (not in the port yet: {MULTI_DEVICE})")
+                   help="run the multi-device pipeline over the process group torchrun set "
+                   "up (one rank without one)")
+    p.add_argument("--backend", choices=["nccl", "gloo"], default="nccl",
+                   help="the process group's backend under torchrun with --distributed")
     p.add_argument("--simulator", type=int, metavar="N", default=None,
-                   help=f"run on N virtual devices (not in the port yet: {MULTI_DEVICE})")
+                   help="run the multi-device pipeline on N Gloo ranks on the CPU (no card "
+                   "needed)")
     p.add_argument("--dtype", choices=["int64", "uint64", "int32", "float64"], default="int64",
                    help="element type (the reference's T modes and the narrow int32)")
     p.add_argument("--checkpoint-dir", default=None)
@@ -74,18 +80,10 @@ def _refuse(what: str, item: str) -> int:
     return 2
 
 
-def _cmd_run(args) -> int:
-    if args.distributed or args.simulator:
-        return _refuse("--simulator" if args.simulator else "--distributed", MULTI_DEVICE)
-
+def _config(args):
     from pim_sort_merge_join_tpu_torch.config import EngineConfig, Predicate
-    from pim_sort_merge_join_tpu_torch.engine.pipeline import QueryPipeline
 
-    if args.debug:
-        from pim_sort_merge_join_tpu_torch.engine.logging import configure
-
-        configure()
-    config = EngineConfig(
+    return EngineConfig(
         predicate1=Predicate(args.select_col1, args.select_op1, args.select_val1),
         predicate2=Predicate(args.select_col2, args.select_op2, args.select_val2),
         join_key1=args.join_key1,
@@ -99,21 +97,81 @@ def _cmd_run(args) -> int:
         narrow_keys=True if args.narrow_keys else "auto",
         debug_log=args.debug,
     )
+
+
+def _distributed_query(args, device) -> tuple[int, str, bool]:
+    """The query on this rank of the default process group (one rank when
+    there is none): every rank reads both CSVs whole, rank 0 writes the
+    result. Returns (rows, metrics JSON, whether this rank reports)."""
+    from pim_sort_merge_join_tpu_torch.columnar import csv_io
+    from pim_sort_merge_join_tpu_torch.engine.distributed import DistributedQueryPipeline
+    from pim_sort_merge_join_tpu_torch.exchange import collectives
+
+    pipe = DistributedQueryPipeline(_config(args), device=device)
+    rows1 = csv_io.load_csv_numpy(args.table1)
+    rows2 = csv_io.load_csv_numpy(args.table2)
+    result = pipe.run_arrays(rows1, rows2).to_numpy()
+    reports = collectives.rank() == 0
+    if reports:
+        csv_io.write_csv(args.output, result)
+    return result.shape[0], pipe.metrics_json(), reports
+
+
+def simulated_query(args) -> tuple[int, str, bool]:
+    """`_distributed_query` on a simulator rank (on the CPU); rank 0 logs."""
+    from pim_sort_merge_join_tpu_torch.exchange import collectives
+
+    if args.debug and collectives.rank() == 0:
+        from pim_sort_merge_join_tpu_torch.engine.logging import configure
+
+        configure()
+    return _distributed_query(args, "cpu")
+
+
+def _run(args) -> tuple[int, str, bool]:
+    if args.simulator:
+        from pim_sort_merge_join_tpu_torch.runner.simulator import spawn_simulator
+
+        return spawn_simulator(simulated_query, args.simulator, args)
+    if args.distributed:
+        import torch.distributed as dist
+
+        from pim_sort_merge_join_tpu_torch.runner.multihost import initialize_multihost
+
+        device = initialize_multihost(None, None, None, args.backend, args.device)
+        try:
+            return _distributed_query(args, device)
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+    from pim_sort_merge_join_tpu_torch.engine.pipeline import QueryPipeline
+
+    pipe = QueryPipeline(_config(args), device=args.device)
+    n = int(pipe.run_csv(args.table1, args.table2, args.output).num_rows)
+    return n, pipe.metrics_json(), True
+
+
+def _cmd_run(args) -> int:
+    if args.debug:
+        from pim_sort_merge_join_tpu_torch.engine.logging import configure
+
+        configure()
     trace_cm = contextlib.nullcontext()
     if args.profile:
         from pim_sort_merge_join_tpu_torch.engine.profiling import device_trace
 
         trace_cm = device_trace(args.profile)
-    pipe = QueryPipeline(config, device=args.device)
     with trace_cm:
-        n = int(pipe.run_csv(args.table1, args.table2, args.output).num_rows)
+        n, metrics, reports = _run(args)
+    if not reports:
+        return 0  # a rank other than 0: rank 0 wrote and reports
     print(f"wrote {n} rows to {args.output}", file=sys.stderr)
     if args.profile:
         from pim_sort_merge_join_tpu_torch.engine.profiling import trace_path
 
         print(f"device trace written to {trace_path(args.profile)}", file=sys.stderr)
     if args.metrics:
-        print(pipe.metrics_json())
+        print(metrics)
     return 0
 
 

@@ -6,10 +6,9 @@ ingest checks of `run_csv`.
   cast or the narrow-key / narrow-data paths fail loudly instead of wrapping;
 - `check_table`: a table's structural invariants, and its order on a column
   in the type's order (`columnar/dtypes.order_key`);
+- `check_sharded_table`: every rank's row count within the capacity (a
+  collective over the table's group);
 - `check_deterministic`: two runs of a pipeline give the same bytes.
-
-`check_sharded_table` waits for the port's multi-device path (ROADMAP,
-"Multi-device"), which brings the sharded tables it checks.
 """
 
 from __future__ import annotations
@@ -87,6 +86,18 @@ def check_table(table: Table, *, sorted_by: int | None = None) -> None:
                 f"column {sorted_by} not sorted ascending at row {bad}: "
                 f"{vals[bad]} > {vals[bad + 1]}"
             )
+
+
+def check_sharded_table(st) -> None:
+    """Validate a `ShardedTable`'s per-rank counts against its capacity,
+    from the counts gathered to every rank (so every rank raises alike)."""
+    counts = st.counts()
+    bad = np.nonzero((counts < 0) | (counts > st.capacity))[0]
+    if bad.size:
+        raise ValidationError(
+            f"shards {bad.tolist()} have counts outside [0, {st.capacity}]: "
+            f"{counts[bad].tolist()}"
+        )
 
 
 def _leaves(out) -> list[torch.Tensor]:
