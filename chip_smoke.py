@@ -70,6 +70,13 @@ Phases, in order; any failure exits non-zero:
  13. the command line (`runner.cli run`: default, ``--dtype float64``,
      ``--join-algorithm hash``, ``--profile``) and the launcher
      (`runner.run`) as subprocesses on the 100k pair, every output equal;
+ 13b. the entry points (`entry.py`) and the examples
+     (`examples/`): `entry(n)`'s fused step at 4096 and 10M rows/table,
+     equal to `pipeline_oracle` with exactly the fused path's kernels,
+     timed; `concat_tables` on the card equal to the CPU's;
+     `dryrun_multichip(4)` on 4 Gloo ranks sharing cuda:0; each of
+     the five examples with ``--device cuda``, every returned value equal
+     to the same example on the CPU (run in worker processes meanwhile);
  14. the multi-device engine (`engine/distributed.py`): (a) NCCL at world
      size 1 in this process, the fused 1:1 query on the phase 5 tables
      through `DistributedQueryPipeline`, equal to `QueryPipeline.run_tables`
@@ -1811,6 +1818,191 @@ def phase_cli() -> dict:
     return rec
 
 
+# --- phase 13b: the entry points and the examples -------------------------
+
+ENTRY_WIDTHS = (4096, 10_000_000)
+# The kernels each example launches in this process (its ranks, for the
+# multi-device examples 02 and 05, are other processes: phase 14 checks the
+# ranks' launches on the same engine). 01's CSV query resolves narrow keys
+# and data on the host; 03's 1:1 hash join runs the wide fused kernels and
+# its aggregate the staged ones; 04's table sorts, merges and resumable 1:1
+# join (unresolved narrow: wide) the same.
+EXAMPLE_KERNELS = {
+    "single_chip_pipeline": FUSED_KERNELS,
+    "distributed": set(),
+    "hash_join_aggregate": FUSED_WIDE_KERNELS,
+    "streaming_merge_checkpoint": FUSED_WIDE_KERNELS,
+    "skew_and_profiling": set(),
+}
+
+
+def entry_oracle(n: int) -> np.ndarray:
+    """`pipeline_oracle` of `entry_rows(n)` (in a worker of phase 13b's pool)."""
+    from pim_sort_merge_join_tpu_torch.entry import entry_rows
+    from pim_sort_merge_join_tpu_torch.ops import oracle
+
+    return oracle.pipeline_oracle(*entry_rows(n))
+
+
+def cpu_worker_init() -> None:
+    import torch
+
+    torch.set_num_threads(2)
+
+
+def run_example(name: str, argv: list, quiet: bool = True) -> tuple[dict, str]:
+    """An example's ``main(argv)``: what it returns and, ``quiet``, what it
+    printed (else it prints; a thread must not redirect the process's
+    stdout)."""
+    import contextlib
+    import importlib
+
+    main = importlib.import_module(f"pim_sort_merge_join_tpu_torch.examples.{name}").main
+    if not quiet:
+        return main(argv), ""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = main(argv)
+    return out, buf.getvalue()
+
+
+def same_value(a, b) -> bool:
+    """Equal dicts, lists and scalars; arrays of one dtype and equal elements."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            same_value(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(same_value(x, y) for x, y in zip(a, b)))
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and a.dtype == b.dtype and np.array_equal(a, b)
+    return type(a) is type(b) and a == b
+
+
+def phase_concat_tables() -> None:
+    """`concat_tables` on the card equal to the same call on the CPU, bit
+    for bit, for tables of three types with empty and padded members."""
+    from pim_sort_merge_join_tpu_torch.columnar.table import Table, concat_tables
+
+    rng = np.random.default_rng(7)
+    for dtype in (np.int64, np.uint64, np.float64):
+        parts = [(rng.integers(0, 2**62, size=(k, 4)).astype(dtype), cap)
+                 for k, cap in ((5, 8), (0, 4), (1_000_000, 1_000_000), (3, 16))]
+        got, want = (concat_tables([Table.from_numpy(r, capacity=c, dtype=dtype, device=device)
+                                    for r, c in parts]) for device in ("cuda", "cpu"))
+        check(got.device.type == "cuda" and int(got.num_rows) == int(want.num_rows)
+              and got.names == want.names and got.dtype == want.dtype
+              and np.array_equal(got.data.cpu().numpy().view(np.int64),
+                                 want.data.numpy().view(np.int64)),
+              f"concat_tables {np.dtype(dtype).name}: the card's table differs from the CPU's")
+    log("concat_tables: int64, uint64 and float64 tables on the card equal to the CPU's")
+
+
+def phase_entry_examples(card: str) -> dict:
+    """Phase 13b: the entry points and the five examples on the card.
+
+    (a) `entry.entry(n)`'s step at n = 4096 and 10M: rows equal to
+    `pipeline_oracle` on the same numpy tables, exactly the fused path's
+    kernels launched, timed by CUDA events (median of 3 after a warmup);
+    then `concat_tables` on the card against the CPU;
+    (b) `dryrun_multichip(4)` on 4 Gloo ranks sharing cuda:0; (c) each
+    example with ``--device cuda`` (02 and 05 on 4 ranks on cuda:0), every
+    value it returns equal to the same example with ``--device cpu``.
+    The 10M oracle goes to a worker process at the start, the CPU's runs
+    once (a) is timed; then (b) and the card's 02 and 05, whose time is
+    their ranks' start, run in threads beside the other examples.
+    """
+    import concurrent.futures
+    import multiprocessing
+
+    import torch
+
+    from pim_sort_merge_join_tpu_torch.entry import dryrun_multichip, entry, entry_rows
+    from pim_sort_merge_join_tpu_torch.examples import NAMES
+    from pim_sort_merge_join_tpu_torch.ops import oracle
+
+    t_phase = time.perf_counter()
+    rec = {"entry": {}, "examples": {}}
+    outputs = tempfile.TemporaryDirectory()
+
+    def example_argv(name, device):
+        # 01 writes its result CSV where it is told.
+        out = os.path.join(outputs.name, f"{name}.{device}.csv")
+        return (["--output", out] if name == "single_chip_pipeline" else []) + ["--device", device]
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=4, mp_context=multiprocessing.get_context("spawn"),
+        initializer=cpu_worker_init)
+    try:
+        big = pool.submit(entry_oracle, ENTRY_WIDTHS[-1])
+        results = {}
+        for n in ENTRY_WIDTHS:
+            fn, (t1, t2) = entry(n)
+            check(t1.device.type == "cuda", f"entry({n}): tables on {t1.device}, not the card")
+            # `pipeline_core` takes an unresolved "auto" as wide.
+            path, kernels_of_path = (
+                ("FUSED_KERNELS", FUSED_KERNELS) if fn.keywords["config"].narrow_keys is True
+                else ("FUSED_WIDE_KERNELS", FUSED_WIDE_KERNELS))
+            out, launches = run_counted(lambda: fn(t1, t2), kernels_of_path, f"entry({n})")
+            results[n] = out.to_numpy()
+            ms = time_ms(lambda _: fn(t1, t2))
+            rec["entry"][n] = {"rows": int(results[n].shape[0]), "ms": ms, "launches": launches,
+                               "kernels": path}
+            log(f"entry({n}): {results[n].shape[0]} rows; launched exactly {path} {launches}; "
+                f"step {ms:.3f} ms (CUDA events, median of 3); {card}")
+            del fn, t1, t2, out
+        torch.cuda.empty_cache()
+        phase_concat_tables()
+        # The multi-device examples first: their ranks' start is most of
+        # their time.
+        order = sorted(NAMES, key=lambda name: bool(EXAMPLE_KERNELS[name]))
+        cpu = {name: pool.submit(run_example, name, example_argv(name, "cpu")) for name in order}
+
+        def timed(fn, *args):
+            t0 = time.perf_counter()
+            return fn(*args), time.perf_counter() - t0
+
+        # Nothing here redirects stdout: threads share it. The threads'
+        # code launches no kernel in this process (their ranks do), so the
+        # counts read around each example of this thread are its own.
+        got = {}
+        with concurrent.futures.ThreadPoolExecutor(max_workers=3) as threads:
+            ranked = {name: threads.submit(timed, run_example, name, example_argv(name, "cuda"),
+                                           False)
+                      for name in order if not EXAMPLE_KERNELS[name]}
+            dryrun = threads.submit(timed, dryrun_multichip, 4, "cuda:0")
+            for name in order:
+                if EXAMPLE_KERNELS[name]:
+                    t0 = time.perf_counter()
+                    (got[name], _), launches = run_counted(
+                        lambda: run_example(name, example_argv(name, "cuda"), False),
+                        EXAMPLE_KERNELS[name], f"example {name}")
+                    rec["examples"][name] = {"s": time.perf_counter() - t0, "launches": launches}
+            rows, rec["dryrun_4_s"] = dryrun.result()
+            for name, fut in ranked.items():
+                (got[name], _), wall = fut.result()
+                rec["examples"][name] = {"s": wall, "launches": {}}
+        log(f"dryrun_multichip(4) on cuda:0: {rows.shape[0]} rows equal to the oracle in "
+            f"{rec['dryrun_4_s']:.1f} s (host clock, the ranks' start included); {card}")
+        for name in NAMES:
+            want, _ = cpu[name].result()
+            check(same_value(got[name], want), f"example {name}: the card's results differ from "
+                  f"the CPU's: {sorted(k for k in want if not same_value(got[name].get(k), want[k]))}")
+            r = rec["examples"][name]
+            log(f"example {name}: every returned value equal to --device cpu; {r['s']:.2f} s "
+                f"(host clock); launches here {r['launches']}")
+        for n in ENTRY_WIDTHS:
+            want = big.result() if n == ENTRY_WIDTHS[-1] else oracle.pipeline_oracle(*entry_rows(n))
+            check(np.array_equal(results[n], want), f"entry({n}): rows differ from pipeline_oracle")
+        log(f"entry({', '.join(map(str, ENTRY_WIDTHS))}): rows equal to pipeline_oracle")
+    finally:
+        pool.shutdown(cancel_futures=True)
+        outputs.cleanup()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"entry and examples: phase {rec['phase_s']:.1f} s; {card}")
+    return rec
+
+
 # --- phase 14: the multi-device engine ---------------------------------------
 
 DIST_RANKS = 4
@@ -2312,6 +2504,7 @@ def main() -> int:
     phase_csv_debug_log()
     phase_edge_keys(rng)
     phase_cli()
+    phase_entry_examples(card)
     phase_distributed(card)
 
     src = "pim_sort_merge_join_tpu_torch/csrc/"

@@ -20,7 +20,7 @@ from pim_sort_merge_join_tpu_torch.columnar import dtypes
 from pim_sort_merge_join_tpu_torch.columnar.dtypes import key_sentinel
 from pim_sort_merge_join_tpu_torch.device import resolve_device
 
-__all__ = ["Table", "key_sentinel"]
+__all__ = ["Table", "concat_tables", "key_sentinel"]
 
 
 def _default_names(ncol: int) -> tuple:
@@ -145,3 +145,28 @@ class Table:
         else:
             data = self.data[:capacity]
         return dataclasses.replace(self, data=data)
+
+
+def concat_tables(tables: Sequence[Table]) -> Table:
+    """Concatenate same-schema tables row-wise, compacting valid rows.
+
+    The valid rows of each table, in table order, then zeros up to the sum
+    of the input capacities; names and type are the first table's. Each
+    table's valid rows are its prefix, so the counts are read in one host
+    read and the rows are moved as their bits in one `torch.cat` on the
+    first table's device.
+    """
+    if not tables:
+        raise ValueError("concat_tables needs at least one table")
+    first = tables[0]
+    device, dtype = first.device, first.dtype
+    counts = torch.stack([t.num_rows.to(device) for t in tables]).tolist()
+    parts = [dtypes.bits(t.data[:n].to(device=device, dtype=dtype))
+             for t, n in zip(tables, counts)]
+    pad = sum(t.capacity for t in tables) - sum(counts)
+    data = torch.cat(parts + [parts[0].new_zeros((pad, first.ncol))])
+    return Table(
+        data=dtypes.from_bits(data, dtype),
+        num_rows=torch.tensor(sum(counts), dtype=torch.int32, device=device),
+        names=first.names,
+    )

@@ -125,3 +125,8 @@ class EngineConfig:
 def _fits_int32(a: np.ndarray) -> bool:
     info = np.iinfo(np.int32)
     return a.size == 0 or bool(a.min() >= info.min and a.max() < info.max)
+
+
+def reference_config() -> EngineConfig:
+    """The exact configuration of the reference benchmark run."""
+    return EngineConfig()

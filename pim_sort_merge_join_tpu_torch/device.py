@@ -25,3 +25,13 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "the plain torch versions)"
         )
     return dev
+
+
+def rank_device(device: str | torch.device | None = None) -> str:
+    """Where spawned ranks put their tensors, as a string they can pickle:
+    ``device`` resolved as above, a card without an index as ``cuda:0``
+    (ranks that share one card)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", 0)
+    return str(dev)
