@@ -2405,7 +2405,10 @@ def phase_profile() -> None:
             pipe.run_tables(g1, g2)
             torch.cuda.synchronize()
             host_ms = (time.perf_counter() - t0) * 1e3
-        on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        # The stage spans (`engine/metrics`, ``smj.*``) show on the device's
+        # timeline too, as annotations: no device work.
+        on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)]
         check(bool(on_card), f"profile {label}: the profiler saw no device activity")
         equals = sum(1 for e in prof.events() if e.name == "aten::equal")
         check(equals == 0, f"profile {label}: {equals} torch.equal calls (a host sync each)")

@@ -21,6 +21,7 @@ from pim_sort_merge_join_tpu_torch.columnar import csv_io, dtypes
 from pim_sort_merge_join_tpu_torch.columnar.table import Table
 from pim_sort_merge_join_tpu_torch.config import EngineConfig
 from pim_sort_merge_join_tpu_torch.device import resolve_device
+from pim_sort_merge_join_tpu_torch.engine import metrics
 from pim_sort_merge_join_tpu_torch.engine.checkpoint import StageCheckpointer, config_fingerprint
 from pim_sort_merge_join_tpu_torch.engine.errors import JoinOverflowError
 from pim_sort_merge_join_tpu_torch.engine.logging import log_event
@@ -33,49 +34,56 @@ from pim_sort_merge_join_tpu_torch.utils import validate
 
 
 def pipeline_core(t1: Table, t2: Table, config: EngineConfig) -> Table:
-    """The filter -> sort -> join dataflow on two tables of one device."""
+    """The filter -> sort -> join dataflow on two tables of one device.
+
+    Its steps are stages of the active collector (`engine/metrics`): the
+    fused path's ``keys`` then the join core's ``merge``, ``unmerge`` and
+    ``emit``; the staged path's ``filter``, ``sort`` and ``join``; the hash
+    path's ``filter`` and ``join``."""
     if config.join_algorithm == "sort_merge" and config.join_mode == "one_to_one":
         # Fused path: filtering is a key mask and the join's slot-permutation
         # sorts subsume the standalone compaction and table sorts.
-        m1 = filter_ops.predicate_mask(t1, config.predicate1)
-        m2 = filter_ops.predicate_mask(t2, config.predicate2)
-        return join_ops.filter_join_one_to_one(
-            t1, t2, config.join_key1, config.join_key2, m1, m2,
-            narrow=config.narrow_keys,
-            narrow_data=config.narrow_data,
-            sort_algorithm=config.sort_algorithm,
+        with metrics.stage("keys", rows_in=t1.capacity + t2.capacity):
+            m1 = filter_ops.predicate_mask(t1, config.predicate1)
+            m2 = filter_ops.predicate_mask(t2, config.predicate2)
+            k1, k2 = join_ops.one_to_one_keys(
+                t1, t2, config.join_key1, config.join_key2, m1, m2, narrow=config.narrow_keys,
+            )
+        return join_ops._one_to_one_merged(
+            t1, t2, config.join_key2, k1, k2, sort_algorithm=config.sort_algorithm,
         )
-    f1 = filter_ops.apply_filter(t1, config.predicate1)
-    f2 = filter_ops.apply_filter(t2, config.predicate2)
+    with metrics.stage("filter", rows_in=t1.capacity + t2.capacity):
+        f1 = filter_ops.apply_filter(t1, config.predicate1)
+        f2 = filter_ops.apply_filter(t2, config.predicate2)
+    out_cap = None
+    if config.join_mode == "inner":
+        out_cap = int(t1.capacity * config.join_slack)
     if config.join_algorithm == "hash":
         # The hash join orders itself in hash space, so it comes before the
         # sort stage. Its rows are in table-1 filtered-row order, not key
         # order; it takes no narrow keys.
-        out_cap = None
-        if config.join_mode == "inner":
-            out_cap = int(t1.capacity * config.join_slack)
-        return hash_join(
-            f1, f2, config.join_key1, config.join_key2,
-            mode=config.join_mode, out_capacity=out_cap,
+        with metrics.stage("join"):
+            return hash_join(
+                f1, f2, config.join_key1, config.join_key2,
+                mode=config.join_mode, out_capacity=out_cap,
+            )
+    with metrics.stage("sort"):
+        s1 = sort_ops.sort_by_key(
+            f1, config.join_key1, algorithm=config.sort_algorithm,
+            narrow=config.narrow_keys is True,
         )
-    s1 = sort_ops.sort_by_key(
-        f1, config.join_key1, algorithm=config.sort_algorithm,
-        narrow=config.narrow_keys is True,
-    )
-    s2 = sort_ops.sort_by_key(
-        f2, config.join_key2, algorithm=config.sort_algorithm,
-        narrow=config.narrow_keys is True,
-    )
-    out_cap = None
-    if config.join_mode == "inner":
-        out_cap = int(t1.capacity * config.join_slack)
-    return join_ops.merge_join(
-        s1, s2, config.join_key1, config.join_key2,
-        mode=config.join_mode, out_capacity=out_cap,
-        narrow=config.narrow_keys,
-        narrow_data=config.narrow_data,
-        sort_algorithm=config.sort_algorithm,
-    )
+        s2 = sort_ops.sort_by_key(
+            f2, config.join_key2, algorithm=config.sort_algorithm,
+            narrow=config.narrow_keys is True,
+        )
+    with metrics.stage("join"):
+        return join_ops.merge_join(
+            s1, s2, config.join_key1, config.join_key2,
+            mode=config.join_mode, out_capacity=out_cap,
+            narrow=config.narrow_keys,
+            narrow_data=config.narrow_data,
+            sort_algorithm=config.sort_algorithm,
+        )
 
 
 def narrow_extremes(d1: torch.Tensor, d2: torch.Tensor, k1: int, k2: int):
@@ -96,7 +104,10 @@ def narrow_fits(lo: torch.Tensor, hi: torch.Tensor, dtype: torch.dtype) -> tuple
     """``(keys fit int32, every value fits int32)`` from `narrow_extremes`."""
     # The order key of a uint64 value v is v - 2^63.
     shift = 2**63 if dtypes.is_unsigned(dtype) else 0
-    klo, dlo, khi, dhi = (v + shift for v in torch.cat([lo, hi]).tolist())
+    both = torch.cat([lo, hi])
+    with metrics.sync(both.numel() * both.element_size()):
+        values = both.tolist()
+    klo, dlo, khi, dhi = (v + shift for v in values)
     info = np.iinfo(np.int32)
     return bool(klo >= info.min and khi < info.max), bool(dlo >= info.min and dhi < info.max)
 
@@ -147,12 +158,15 @@ class QueryPipeline:
         counts its survivors otherwise, so this costs a pass over each
         table, and only when the option is on."""
         cfg = self.config
-        counts = torch.stack([
-            t1.num_rows,
-            filter_ops.predicate_mask(t1, cfg.predicate1).sum(dtype=torch.int32),
-            t2.num_rows,
-            filter_ops.predicate_mask(t2, cfg.predicate2).sum(dtype=torch.int32),
-        ]).tolist()
+        with metrics.stage("debug_filter"):
+            counts = torch.stack([
+                t1.num_rows,
+                filter_ops.predicate_mask(t1, cfg.predicate1).sum(dtype=torch.int32),
+                t2.num_rows,
+                filter_ops.predicate_mask(t2, cfg.predicate2).sum(dtype=torch.int32),
+            ])
+            with metrics.sync(counts.numel() * counts.element_size()):
+                counts = counts.tolist()
         log_event(
             "filter",
             table1_rows_in=counts[0],
@@ -163,15 +177,12 @@ class QueryPipeline:
             predicate2=cfg.predicate2.describe(),
         )
 
-    def run_tables(
-        self,
-        t1: Table,
-        t2: Table,
-        *,
-        narrow: bool | None = None,
-        narrow_data: bool | None = None,
-    ) -> Table:
-        self._check_devices(t1, t2)
+    def _resolve_narrow(
+        self, t1: Table, t2: Table, narrow: bool | None, narrow_data: bool | None
+    ) -> EngineConfig:
+        """The configuration with narrow_keys / narrow_data concrete: the
+        arguments where given, else the configuration's, its "auto" from
+        the device probe."""
         if narrow is None or narrow_data is None:
             need_probe = (narrow is None and self.config.narrow_keys == "auto") or (
                 narrow_data is None and self.config.narrow_data == "auto"
@@ -191,14 +202,30 @@ class QueryPipeline:
                 )
         self.resolved_narrow_keys = bool(narrow)
         self.resolved_narrow_data = bool(narrow_data)
-        cfg = dataclasses.replace(
+        return dataclasses.replace(
             self.config, narrow_keys=bool(narrow), narrow_data=bool(narrow_data)
         )
-        if self.config.debug_log:
-            self._debug_filter_counts(t1, t2)
-        with self.metrics.stage("execute") as m:
+
+    def run_tables(
+        self,
+        t1: Table,
+        t2: Table,
+        *,
+        narrow: bool | None = None,
+        narrow_data: bool | None = None,
+    ) -> Table:
+        self._check_devices(t1, t2)
+        # ``execute`` holds the query's stages, each with a span of its own:
+        # ``probe`` (the narrow decision, with the device probe where it is
+        # "auto"), pipeline_core's steps, the row count's ``readback``.
+        with metrics.collecting(self.metrics), self.metrics.stage("execute", span=False) as m:
+            with metrics.stage("probe"):
+                cfg = self._resolve_narrow(t1, t2, narrow, narrow_data)
+            if self.config.debug_log:
+                self._debug_filter_counts(t1, t2)
             result = pipeline_core(t1, t2, cfg)
-            m.rows_out = int(result.num_rows)  # waits for the device
+            with metrics.stage("readback") as r, metrics.sync(result.num_rows.element_size()):
+                m.rows_out = r.rows_out = int(result.num_rows)  # waits for the device
         if self.config.debug_log:
             log_event(
                 "join",

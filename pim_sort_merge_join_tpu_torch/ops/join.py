@@ -38,6 +38,7 @@ import torch
 
 from pim_sort_merge_join_tpu_torch.columnar import dtypes
 from pim_sort_merge_join_tpu_torch.columnar.table import Table, key_sentinel
+from pim_sort_merge_join_tpu_torch.engine import metrics
 from pim_sort_merge_join_tpu_torch.ops.kernels import join_scan
 from pim_sort_merge_join_tpu_torch.ops.kernels.gather import gather_rows
 from pim_sort_merge_join_tpu_torch.ops.sort import (
@@ -224,6 +225,28 @@ def _merged_dest(mkeys: torch.Tensor, mpos: torch.Tensor, cap1: int):
     return join_scan.join_scan_dest(mkeys, mpos, cap1)
 
 
+def one_to_one_keys(
+    t1: Table,
+    t2: Table,
+    key1: int,
+    key2: int,
+    mask1: torch.Tensor | None = None,
+    mask2: torch.Tensor | None = None,
+    *,
+    narrow: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused 1:1 join's key vectors: each table's key column as order
+    keys of the two tables' promoted type, rows outside its mask (padding
+    by default) the sentinel. ``narrow is True`` narrows those of an 8-byte
+    integer type to int32 (an unresolved "auto" stays wide)."""
+    dtype = dtypes.promote(t1.dtype, t2.dtype)
+    k1 = _order_keys(t1, key1, dtype, mask1)
+    k2 = _order_keys(t2, key2, dtype, mask2)
+    if narrow is True and k1.dtype == torch.int64 and dtype in (torch.int64, torch.uint64):
+        k1, k2 = narrow32(k1, dtype), narrow32(k2, dtype)
+    return k1, k2
+
+
 def _one_to_one_merged(
     t1: Table,
     t2: Table,
@@ -231,43 +254,37 @@ def _one_to_one_merged(
     k1: torch.Tensor,
     k2: torch.Tensor,
     *,
-    narrow: bool = False,
-    narrow_data: bool = False,
     sort_algorithm: str = "auto",
 ) -> Table:
     """1:1 join core over pre-masked key vectors; sortedness NOT required.
 
-    ``k1``/``k2`` are int32/int64 order keys (`columnar/dtypes.order_key`,
-    the sentinel where masked) or hashes; ``narrow`` narrows those of an
-    8-byte integer table to int32.
+    ``k1``/``k2`` are int32/int64 order keys (`one_to_one_keys`, the
+    sentinel where masked) or hashes.
 
     1. merge both key columns: one stable sort, whose permutation is each
        element's concat position (t1 first on ties); the scan gives each
-       element its output slot or the drop value;
+       element its output slot or the drop value (stage ``merge``);
     2. un-merge the slots back to row positions (one sort keyed on the
-       carried position, a permutation inverse);
+       carried position, a permutation inverse; stage ``unmerge``);
     3. per table, sort rows by output slot: matched rows land densely at
-       the front in key order.
+       the front in key order (stage ``emit``).
     """
     cap1, cap2 = t1.capacity, t2.capacity
     n = cap1 + cap2
     dev = t1.device
 
-    # `narrow is True`: an unresolved "auto" takes the wide path.
-    key_dtype = dtypes.promote(t1.dtype, t2.dtype)
-    if narrow is True and k1.dtype == torch.int64 and key_dtype in (torch.int64, torch.uint64):
-        k1, k2 = narrow32(k1, key_dtype), narrow32(k2, key_dtype)
-
     # --- 1. merge the key columns (t1 wins ties) ---------------------------
-    mkeys, mpos = sort_key_permutation(torch.cat([k1, k2]))
-    dest, num_out = _merged_dest(mkeys, mpos, cap1)
+    with metrics.stage("merge"):
+        mkeys, mpos = sort_key_permutation(torch.cat([k1, k2]))
+        dest, num_out = _merged_dest(mkeys, mpos, cap1)
 
     # --- 2. un-merge: slots back to original row positions -----------------
-    _, dest_by_pos = stable_key_sort(
-        (mpos, dest), algorithm=sort_algorithm, unique_keys=True
-    )
-    dest1 = dest_by_pos[:cap1]
-    dest2 = dest_by_pos[cap1:]
+    with metrics.stage("unmerge"):
+        _, dest_by_pos = stable_key_sort(
+            (mpos, dest), algorithm=sort_algorithm, unique_keys=True
+        )
+        dest1 = dest_by_pos[:cap1]
+        dest2 = dest_by_pos[cap1:]
 
     # --- 3. emit: permute each table's rows to their output slots ----------
     # Dropped rows (dest = n) are uniquified with their row index so both
@@ -281,12 +298,14 @@ def _one_to_one_merged(
         iota = torch.arange(cap, dtype=torch.int32, device=dev)
         return torch.where(d >= n, n + iota, d)
 
-    data, data_bits, data1, data2, keep2 = _out_buffer(t1, t2, key2, cap1)
-    stable_key_sort_rows(
-        [(_uniq(dest1, cap1), data1), (_uniq(dest2, cap2), data2, keep2)],
-        algorithm=sort_algorithm, out=data_bits, live=num_out,
-    )
-    return Table(data=data, num_rows=num_out, names=_out_names(t1, t2, key2))
+    with metrics.stage("emit"):
+        data, data_bits, data1, data2, keep2 = _out_buffer(t1, t2, key2, cap1)
+        metrics.count(bytes_out=data.numel() * data.element_size())
+        stable_key_sort_rows(
+            [(_uniq(dest1, cap1), data1), (_uniq(dest2, cap2), data2, keep2)],
+            algorithm=sort_algorithm, out=data_bits, live=num_out,
+        )
+        return Table(data=data, num_rows=num_out, names=_out_names(t1, t2, key2))
 
 
 def merge_join_one_to_one(
@@ -299,12 +318,11 @@ def merge_join_one_to_one(
     narrow_data: bool = False,
     sort_algorithm: str = "auto",
 ) -> Table:
-    """Reference-semantics 1:1 merge join; output capacity is t1's."""
-    dtype = dtypes.promote(t1.dtype, t2.dtype)
-    return _one_to_one_merged(
-        t1, t2, key2, _order_keys(t1, key1, dtype), _order_keys(t2, key2, dtype),
-        narrow=narrow, narrow_data=narrow_data, sort_algorithm=sort_algorithm,
-    )
+    """Reference-semantics 1:1 merge join; output capacity is t1's.
+    ``narrow_data`` is accepted for the reference's signature (see
+    `_one_to_one_merged`)."""
+    k1, k2 = one_to_one_keys(t1, t2, key1, key2, narrow=narrow)
+    return _one_to_one_merged(t1, t2, key2, k1, k2, sort_algorithm=sort_algorithm)
 
 
 def filter_join_one_to_one(
@@ -324,14 +342,10 @@ def filter_join_one_to_one(
     ``mask1``/``mask2`` select the surviving rows (already AND-ed with
     validity); masked-out rows get sentinel keys and never match. Output
     equals the staged filter -> sort -> join path byte for byte.
+    ``narrow_data`` as in `merge_join_one_to_one`.
     """
-    dtype = dtypes.promote(t1.dtype, t2.dtype)
-    k1 = _order_keys(t1, key1, dtype, mask1)
-    k2 = _order_keys(t2, key2, dtype, mask2)
-    return _one_to_one_merged(
-        t1, t2, key2, k1, k2, narrow=narrow, narrow_data=narrow_data,
-        sort_algorithm=sort_algorithm,
-    )
+    k1, k2 = one_to_one_keys(t1, t2, key1, key2, mask1, mask2, narrow=narrow)
+    return _one_to_one_merged(t1, t2, key2, k1, k2, sort_algorithm=sort_algorithm)
 
 
 def merge_join_inner(

@@ -2,6 +2,7 @@
 
 from pim_sort_merge_join_tpu_torch.ops.kernels import (
     bitonic_sort,
+    build,
     gather,
     hbm_sort,
     join_scan,
@@ -19,6 +20,7 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    build.launches = 0
     for counts in _COUNTERS:
         for name in counts:
             counts[name] = 0

@@ -27,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from pim_sort_merge_join_tpu_torch.engine import metrics
 from pim_sort_merge_join_tpu_torch.ops.kernels import build
 from pim_sort_merge_join_tpu_torch.ops.kernels.hbm_sort import (
     hbm_sort,
@@ -236,6 +237,7 @@ def launch_passes(
     build.check(err, f"bitonic_sort, {len(passes)} passes")
     for p in passes:
         LAUNCHES["bitonic_strided" if p.strided else "bitonic_local"] += 1
+        build.launches += 1
 
 
 def bitonic_sort_cuda(keys: torch.Tensor, vals: torch.Tensor, width: int | None = None):
@@ -301,6 +303,8 @@ def sort_pairs(keys: torch.Tensor, vals: torch.Tensor):
             stacklevel=2,
         )
         return hbm_sort((keys, vals))
+    if n:
+        metrics.count(elements=n, passes=len(bitonic_schedule(n2)))
     if devices == {"cuda"}:
         # The kernels pad on the way in and drop the padding on the way out.
         return bitonic_sort_cuda(keys, vals, width=n2) if n else (keys.clone(), vals.clone())

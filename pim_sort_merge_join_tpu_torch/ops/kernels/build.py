@@ -36,6 +36,11 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
+# Launches of every kernel since the last `ops/kernels.reset_launch_counts`:
+# each wrapper adds to it beside its own module's ``LAUNCHES``, so that
+# `engine/metrics` reads the total at each stage in one look-up.
+launches = 0
+
 
 def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))

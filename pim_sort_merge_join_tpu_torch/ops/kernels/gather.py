@@ -184,6 +184,7 @@ def gather_rows_cuda(parts, *, out=None, live=None) -> torch.Tensor:
         )
         build.check(err, "gather_rows")
         LAUNCHES["gather_rows"] += 1
+        build.launches += 1
         col += len(flat_cols)
     return out
 

@@ -35,9 +35,11 @@ length takes are plain functions here (`pack_packed32`, `pack_pair32`,
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
+from pim_sort_merge_join_tpu_torch.engine import metrics
 from pim_sort_merge_join_tpu_torch.ops.kernels import build
 from pim_sort_merge_join_tpu_torch.ops.kernels.gather import gather_rows
 
@@ -89,6 +91,7 @@ def hbm_sort_plain(
     """Plain torch version: one stable `torch.sort` per key, from the last
     key to the first, then a gather of every operand."""
     n = operands[0].shape[0]
+    _count_sort(n)
     perm = torch.arange(n, device=operands[0].device)
     for key in reversed(operands[:num_keys]):
         _, order = torch.sort(key[perm], stable=True)
@@ -169,6 +172,20 @@ def pass_schedule(n: int) -> tuple[int, list[int]]:
     return npad, runs
 
 
+@functools.lru_cache(maxsize=64)
+def _sort_passes(n: int) -> int:
+    """The launches of kernels 1 and 2 that sort ``n >= 1`` elements: the
+    chunk sort and each merge pass of `pass_schedule`."""
+    return 1 + len(pass_schedule(n)[1])
+
+
+def _count_sort(n: int) -> None:
+    """Count a sort of ``n`` elements on the innermost open stage
+    (`engine/metrics`): ``elements`` and `_sort_passes`."""
+    if n:
+        metrics.count(elements=n, passes=_sort_passes(n))
+
+
 def key_operands(operands, kind: int):
     """The two key pointers' tensors for `chunk_sort` (the second is unused
     by the one-key kinds)."""
@@ -196,6 +213,7 @@ def chunk_sort(k0: torch.Tensor, k1: torch.Tensor, kind: int):
     )
     build.check(err, "hbm_sort chunk sort")
     LAUNCHES["hbm_sort_chunk"] += 1
+    build.launches += 1
     return keys, idx
 
 
@@ -223,6 +241,7 @@ def merge_passes(keys: torch.Tensor, idx: torch.Tensor | None, kind: int, n: int
         )
         build.check(err, "hbm_sort merge pass")
         LAUNCHES["hbm_sort_merge"] += 1
+        build.launches += 1
         src, dst = dst, src
     first = None if wide else torch.empty(n, dtype=torch.int32, device=dev)
     second = torch.empty(n, dtype=torch.int32, device=dev)
@@ -232,11 +251,13 @@ def merge_passes(keys: torch.Tensor, idx: torch.Tensor | None, kind: int, n: int
     )
     build.check(err, "hbm_sort last merge pass")
     LAUNCHES["hbm_sort_merge"] += 1
+    build.launches += 1
     return first, second
 
 
 def sort_elements(k0: torch.Tensor, k1: torch.Tensor, kind: int):
     """Kernels 1 + 2 on the key operand(s): `merge_passes` of `chunk_sort`."""
+    _count_sort(k0.shape[0])
     return merge_passes(*chunk_sort(k0, k1, kind), kind, k0.shape[0])
 
 
@@ -261,6 +282,7 @@ def gather(perm: torch.Tensor, operands: tuple[torch.Tensor, ...]) -> tuple[torc
         )
         build.check(err, "hbm_sort gather")
         LAUNCHES["hbm_sort_gather"] += 1
+        build.launches += 1
     return outs
 
 

@@ -82,6 +82,7 @@ def join_scan_forward(mkeys: torch.Tensor, mpos: torch.Tensor, cap1: int):
     )
     build.check(err, "join_scan forward")
     LAUNCHES["join_scan_forward"] += 1
+    build.launches += 1
     return cand, m2
 
 
@@ -100,6 +101,7 @@ def join_scan_backward(mkeys: torch.Tensor, cand: torch.Tensor, m2: torch.Tensor
     )
     build.check(err, "join_scan backward")
     LAUNCHES["join_scan_backward"] += 1
+    build.launches += 1
     return dest, num_out
 
 

@@ -333,6 +333,7 @@ def radix_tile_sort_cuda(
     )
     build.check(err, "radix_tile_sort")
     LAUNCHES["radix_tile"] += 1
+    build.launches += 1
     return outs
 
 
@@ -423,8 +424,11 @@ def xla_lsd_radix_sort_cuda(
     )
     build.check(err, "xla_lsd_radix_sort")
     LAUNCHES["lsd_radix_histogram"] += 1
+    build.launches += 1
     LAUNCHES["lsd_radix_scan"] += 1
+    build.launches += 1
     LAUNCHES["lsd_radix_pass"] += npass
+    build.launches += npass
     if not has_val:
         return (out_key,)
     if gen_pos:
