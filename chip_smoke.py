@@ -15,25 +15,30 @@ Phases, in order; any failure exits non-zero:
   2. build the kernels from `pim_sort_merge_join_tpu_torch/csrc/` (first use);
   3. every kernel against its plain torch version on the card, exactly:
      adversarial cases (each join-scan kernel against its own plain half
-     and the pair against the whole plain scan, with int64 and int32 keys;
+     and the pair against the whole plain scan, with int64 and int32 keys,
+     and the placement on the scan's slots, also one element off its
+     alignment;
      the bitonic network at every width from 2 to 2^21 and around its tile;
      the row gather over widths, windows, block edges, live counts and two
      tables in one call; the column gather over lengths and alignments; both
      radix sorts over tiles, digit widths, key bits, operand counts and
      arrays one element off their alignment),
      then the shapes the paths give them, timed with CUDA events (median of
-     3 after a warmup): the fused path's at 10M rows/table (its merge and
-     un-merge sorts as phase A, phase B and whole, beside stable
-     `torch.sort` of the key alone; its emit sort with table 1's rows as
-     payload; the join scans over its 20M int32 keys and over the 1M
-     wide-keys query's 2M int64 keys), both gathers at the paths' shapes
+     3 after a warmup): the fused path's at 10M rows/table (its merge
+     sort as phase A, phase B and whole, beside stable `torch.sort` of the
+     key alone; the join scans over its 20M int32 keys and over the 1M
+     wide-keys query's 2M int64 keys; the placement over its 20M merged
+     elements beside one `index_put_`; the un-merge sort and the emit sort
+     with table 1's rows as payload that the placement replaced, as its
+     yardstick), both gathers at the paths' shapes
      beside `index_select`, the bitonic sort at its 2^21 cap, and the radix
      tile sort at the merge sort's 20M elements (tiles of 2048, 512 and
      8192), beside the chunk sort and one `torch.sort` of every tile's keys.
      The radix sort then forms the runs of that merge sort (run formation:
      radix runs + merge passes), which must equal the `hbm_sort` result.
      Last the global radix sort (`xla_lsd_radix_sort`) of `(key, payload)`
-     at the fused path's merge, un-merge and emit sorts, which must equal
+     at the fused path's merge sort and at the replaced un-merge and emit
+     sorts, which must equal
      `hbm_sort`'s result element for element and the plain version on the
      first 2^18 elements, beside `hbm_sort` and stable `torch.sort`;
   4. the query at 100k rows/table through `QueryPipeline.run_csv`: rows and
@@ -308,18 +313,33 @@ def key_widths(mkeys):
 
 
 def scan_errs(mk, mp, cap1) -> dict[str, int]:
-    """Largest difference of each scan kernel from its own plain half, and
-    of the pair from the whole plain scan, on tensors on the card."""
+    """Largest difference of each scan kernel from its own plain half, of
+    the pair from the whole plain scan, and of the placement from its plain
+    version on the scan's slots, on tensors on the card."""
     from pim_sort_merge_join_tpu_torch.ops.join import _merged_dest_plain
     from pim_sort_merge_join_tpu_torch.ops.kernels import join_scan as js
 
     want_fw = js.join_scan_forward_plain(mk, mp, cap1)
+    want = _merged_dest_plain(mk, mp, cap1)
     return {
         "scan_forward": max_abs_err(js.join_scan_forward(mk, mp, cap1), want_fw),
         "scan_backward": max_abs_err(js.join_scan_backward(mk, *want_fw),
                                      js.join_scan_backward_plain(mk, *want_fw)),
-        "scan": max_abs_err(js.join_scan_cuda(mk, mp, cap1), _merged_dest_plain(mk, mp, cap1)),
+        "scan": max_abs_err(js.join_scan_cuda(mk, mp, cap1), want),
+        "place": place_err(*want, mp, cap1),
     }
+
+
+def place_err(dest, num_out, mpos, cap1: int) -> int:
+    """Largest difference of `place_sources` from its plain version on the
+    slots it fills (the first ``num_out`` of each output), as the arrays
+    are and one element off their 16-byte alignment."""
+    from pim_sort_merge_join_tpu_torch.ops.kernels import join_scan as js
+
+    live = int(num_out)
+    want = tuple(s[:live] for s in js.place_sources_plain(dest, mpos, cap1, cap1))
+    return max(max_abs_err(tuple(s[:live] for s in js.place_sources(d, p, cap1, cap1)), want)
+               for d, p in ((dest, mpos), (one_element_in(dest), one_element_in(mpos))))
 
 
 I32MIN, I32MAX = np.iinfo(np.int32).min, np.iinfo(np.int32).max
@@ -635,8 +655,8 @@ def phase_adversarial(rng) -> dict[str, int]:
     from pim_sort_merge_join_tpu_torch.ops.kernels import hbm_sort as hs
     from pim_sort_merge_join_tpu_torch.ops.kernels import radix_sort as rs
 
-    errs = {"sort": 0, "scan": 0, "scan_forward": 0, "scan_backward": 0, "bitonic": 0, "radix": 0,
-            "lsd": 0, "gather_rows": 0, "gather": 0}
+    errs = {"sort": 0, "scan": 0, "scan_forward": 0, "scan_backward": 0, "place": 0, "bitonic": 0,
+            "radix": 0, "lsd": 0, "gather_rows": 0, "gather": 0}
     sorts, scans = sort_cases(rng), scan_cases(rng)
     bitonics, radixes, lsds = bitonic_cases(rng), radix_cases(rng), lsd_cases(rng)
     widths = bitonic_width_cases(rng, bs.LOG_TILE)
@@ -768,6 +788,7 @@ def time_scan(rec: dict, prefix: str, mkeys, mpos, cap1: int) -> None:
     rec[f"{prefix}forward_err"] = errs["scan_forward"]
     rec[f"{prefix}backward_err"] = errs["scan_backward"]
     rec[f"{prefix}scan_err"] = errs["scan"]
+    rec[f"{prefix}place_err"] = errs["place"]
     cand, m2 = js.join_scan_forward(mkeys, mpos, cap1)
     dest, _ = js.join_scan_backward(mkeys, cand, m2)
     rec[f"{prefix}scan_n"] = n
@@ -778,9 +799,30 @@ def time_scan(rec: dict, prefix: str, mkeys, mpos, cap1: int) -> None:
     rec[f"{prefix}backward_plain_ms"] = time_ms(lambda _: js.join_scan_backward_plain(mkeys, cand, m2))
     rec[f"{prefix}forward_bound"] = bound(nbytes(mkeys, mpos, cand, m2), compares=4 * n)
     rec[f"{prefix}backward_bound"] = bound(nbytes(mkeys, cand, m2, dest), compares=4 * n)
-    for which in ("forward_err", "backward_err", "scan_err"):
+    for which in ("forward_err", "backward_err", "scan_err", "place_err"):
         check(rec[prefix + which] == 0,
               f"main-path shape {prefix}{which} = {rec[prefix + which]}: kernel differs from plain")
+
+
+def time_place(rec: dict, dest, num_out, mpos, cap1: int) -> None:
+    """The placement over the query's merged elements: its time, its plain
+    version's, its bound (``dest`` and ``mpos`` read, one int32 written per
+    matched element of each side) and, as the library's, one `index_put_`
+    of the matched elements alone at slots computed beforehand."""
+    import torch
+
+    from pim_sort_merge_join_tpu_torch.ops.kernels import join_scan as js
+
+    live = int(num_out)
+    matched = dest < cap1
+    side2 = (mpos >= cap1).to(torch.int32)
+    slot = (dest + side2 * cap1)[matched].long()
+    vals = (mpos - side2 * cap1)[matched]
+    buf = torch.empty(2 * cap1, dtype=torch.int32, device=dest.device)
+    rec["place_ms"] = time_ms(lambda _: js.place_sources(dest, mpos, cap1, cap1), reps=9)
+    rec["place_plain_ms"] = time_ms(lambda _: js.place_sources_plain(dest, mpos, cap1, cap1))
+    rec["place_library_ms"] = time_ms(lambda _: buf.index_put_((slot,), vals), reps=9)
+    rec["place_bound"] = bound(nbytes(dest, mpos) + 2 * 4 * live)
 
 
 def wide_merged_keys():
@@ -853,10 +895,12 @@ def phase_main_path_shapes(r1, r2, cfg) -> dict:
     dest, num_out = js.join_scan_cuda(mkeys, mpos, cap1)
     rec["num_out"] = int(num_out)
     time_scan(rec, "wide_", *wide_merged_keys())
+    time_place(rec, dest, num_out, mpos, cap1)
 
-    # Un-merge sort: 2n, one unique int32 key and one int32 payload. The
-    # path sorts it as two keys (`stable_key_sort`, unique_keys): pair-32,
-    # no gather.
+    # The sorts the placement replaced, at their shapes in the query, kept
+    # as its yardstick and as `hbm_sort`'s cases. Un-merge sort: 2n, one
+    # unique int32 key and one int32 payload, sorted as two keys
+    # (`stable_key_sort`, unique_keys): pair-32, no gather.
     unmerge_ops = (mpos, dest)
     _, dest_by_pos = hs.hbm_sort(unmerge_ops, 2)
     check(max_abs_err((dest_by_pos,), hs.hbm_sort_plain(unmerge_ops, 1)[1:]) == 0,
@@ -1212,10 +1256,11 @@ def host_ms(fn, reps: int = 3) -> float:
 
 
 # The kernels each path must launch, and no other. The fused query with
-# narrow keys needs no column gather: its merge and un-merge sorts carry
-# both operands in the element, and its emit sorts move rows.
+# narrow keys needs no column gather: its merge sort carries both operands
+# in the element, the placement names each slot's rows and one row gather
+# moves them.
 FUSED_KERNELS = {"hbm_sort_chunk", "hbm_sort_merge", "gather_rows",
-                 "join_scan_forward", "join_scan_backward"}
+                 "join_scan_forward", "join_scan_backward", "join_scan_place"}
 FUSED_WIDE_KERNELS = FUSED_KERNELS | {"hbm_sort_gather"}
 STAGED_KERNELS = {"hbm_sort_chunk", "hbm_sort_merge", "hbm_sort_gather", "gather_rows"}
 STAGED_BITONIC_KERNELS = STAGED_KERNELS | {"bitonic_local", "bitonic_strided"}
@@ -2361,6 +2406,7 @@ LAUNCH_KEYS = {
     "hbm_sort_chunk": {"hbm_sort_chunk"}, "hbm_sort_merge": {"hbm_sort_merge"},
     "hbm_sort_gather": {"hbm_sort_gather"}, "gather_rows": {"gather_rows"},
     "join_scan_forward": {"join_scan_forward"}, "join_scan_backward": {"join_scan_backward"},
+    "join_scan_place": {"join_scan_place"},
     "bitonic_sort": {"bitonic_local", "bitonic_strided"}, "radix_tile_sort": {"radix_tile"},
     "lsd_radix_sort": LSD_KERNELS,
 }
@@ -2518,6 +2564,7 @@ def main() -> int:
                       shapes["wide_forward_err"])
     backward_err = max(pair_err, errs["scan_backward"], shapes["backward_err"],
                        shapes["wide_backward_err"])
+    place_err_ = max(errs["place"], shapes["place_err"], shapes["wide_place_err"])
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound_rec, library_ms=None):
         # Launches per query on each path of the other element types.
@@ -2559,6 +2606,12 @@ def main() -> int:
         entry("join_scan_backward", "join_scan.cu", "join_scan.py:216",
               launches["join_scan_backward"], backward_err, shapes["backward_ms"],
               shapes["backward_plain_ms"], shapes["backward_bound"]),
+        # No Pallas kernel: it replaces the sorts of steps 2-3 of the JAX
+        # package's `_one_to_one_merged`.
+        {**entry("join_scan_place", "join_scan.cu", "", launches["join_scan_place"],
+                 place_err_, shapes["place_ms"], shapes["place_plain_ms"], shapes["place_bound"],
+                 shapes["place_library_ms"]),
+         "replaces": "pim_sort_merge_join_tpu/ops/join.py:261 _one_to_one_merged, steps 2-3"},
         entry("bitonic_sort", "bitonic_sort.cu", "sort_kernel.py:138",
               launches_b["bitonic_local"] + launches_b["bitonic_strided"],
               max(errs["bitonic"], bitonic["bitonic_err"]), bitonic["bitonic_ms"],

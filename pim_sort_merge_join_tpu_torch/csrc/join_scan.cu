@@ -1,8 +1,11 @@
-// The 1:1 join-rank scan for the PyTorch port: forward and backward passes.
+// The 1:1 join-rank scan for the PyTorch port: forward and backward passes,
+// and the placement of each output slot's source rows.
 //
 // Replaces the TPU kernels of pim_sort_merge_join_tpu/ops/pallas/join_scan.py:
 //   _forward_kernel  -> join_scan_forward_kernel
 //   _backward_kernel -> join_scan_backward_kernel
+// and, with join_scan_place_kernel (its note is above the kernel), the sorts
+// of steps 2 and 3 of the JAX package's ops/join._one_to_one_merged.
 // and computes exactly what ops/join._merged_dest_plain computes. Input: the
 // merge sort's output, keys ascending with side-1 elements (mpos < cap1)
 // before side-2 elements within each equal-key run. Forward: ranks within
@@ -64,6 +67,14 @@
 #endif
 #ifndef JS_BACKWARD_THREADS_PER_SM
 #define JS_BACKWARD_THREADS_PER_SM 2048
+#endif
+// The placement: threads a block, and the most blocks its grid-stride loop
+// takes (about two waves of 132 SMs at 8 resident blocks each).
+#ifndef JS_PLACE_THREADS
+#define JS_PLACE_THREADS 256
+#endif
+#ifndef JS_PLACE_MAX_BLOCKS
+#define JS_PLACE_MAX_BLOCKS 2048
 #endif
 #define JS_BLOCKS_PER_SM(threads) ((threads) / JS_THREADS > 0 ? (threads) / JS_THREADS : 1)
 #define JS_BLOCK (JS_THREADS * JS_ITEMS)
@@ -554,6 +565,60 @@ join_scan_backward_kernel(const KeyT* __restrict__ keys, const int32_t* __restri
   store_items(dest, i0, n, vec, d);
 }
 
+// --- the placement ---------------------------------------------------------------
+//
+// join_scan_place_kernel replaces what steps 2 and 3 of the JAX package's
+// ops/join._one_to_one_merged sort for: the un-merge sort keyed on mpos and,
+// per table, the emit sort keyed on the row's slot (dropped rows n + row).
+// The matched slots of each side are exactly 0 .. num_out-1, so a matched
+// row's rank in its emit sort is its slot, and those sorts only find src[d],
+// the row that feeds slot d. One pass over the merged elements knows it:
+// src1[dest[i]] = mpos[i] on side 1 (mpos[i] < cap1) and src2[dest[i]] =
+// mpos[i] - cap1 on side 2. A dropped element (dest = n >= out_rows) writes
+// nothing, and the slots from num_out on are never written: the row gather
+// writes zeros there and reads no source.
+//
+// What bounds it on an H100: bytes, 8 read per merged element (dest, mpos)
+// and 4 written per matched one; at 20M elements at most 240 MB, 0.072 ms at
+// 3.35 TB/s. The reads are 128-bit, 4 elements a thread, in a grid-stride
+// loop; a scalar loop takes the n % 4 tail, and the whole array where dest
+// or mpos is not 16-byte aligned. The stores are 4-byte scatters whose
+// targets lie close together within a warp: the matched slots rise with the
+// merged key order, and a run's side-1 and side-2 elements fill the same
+// slots of the two outputs.
+
+__device__ __forceinline__ void place_one(int32_t d, int32_t p, int cap1, int out_rows,
+                                          int32_t* __restrict__ src1, int32_t* __restrict__ src2) {
+  if ((uint32_t)d < (uint32_t)out_rows) {
+    if (p < cap1) {
+      src1[d] = p;
+    } else {
+      src2[d] = p - cap1;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(JS_PLACE_THREADS)
+join_scan_place_kernel(const int32_t* __restrict__ dest, const int32_t* __restrict__ mpos, int64_t n,
+                       int cap1, int out_rows, int aligned, int32_t* __restrict__ src1,
+                       int32_t* __restrict__ src2) {
+  const int64_t stride = (int64_t)gridDim.x * JS_PLACE_THREADS;
+  const int64_t t = (int64_t)blockIdx.x * JS_PLACE_THREADS + threadIdx.x;
+  const int64_t nvec = aligned ? n / 4 : 0;
+  const int4* dv = reinterpret_cast<const int4*>(dest);
+  const int4* pv = reinterpret_cast<const int4*>(mpos);
+  for (int64_t v = t; v < nvec; v += stride) {
+    const int4 d = __ldg(dv + v);
+    const int4 p = __ldg(pv + v);
+    place_one(d.x, p.x, cap1, out_rows, src1, src2);
+    place_one(d.y, p.y, cap1, out_rows, src1, src2);
+    place_one(d.z, p.z, cap1, out_rows, src1, src2);
+    place_one(d.w, p.w, cap1, out_rows, src1, src2);
+  }
+  for (int64_t i = 4 * nvec + t; i < n; i += stride)
+    place_one(__ldg(dest + i), __ldg(mpos + i), cap1, out_rows, src1, src2);
+}
+
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
@@ -608,5 +673,19 @@ extern "C" int smj_join_scan_backward(const void* keys, int key_bytes, const voi
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// src1, src2: int32 [out_rows] each, written only at the matched slots.
+// dest, mpos: int32 [n], n >= 1.
+extern "C" int smj_join_scan_place(const void* dest, const void* mpos, int64_t n, int cap1,
+                                   int out_rows, void* src1, void* src2, void* stream) {
+  const int aligned = aligned16(dest) && aligned16(mpos);
+  const int64_t units = aligned ? (n + 3) / 4 : n;
+  int64_t blocks = (units + JS_PLACE_THREADS - 1) / JS_PLACE_THREADS;
+  if (blocks > JS_PLACE_MAX_BLOCKS) blocks = JS_PLACE_MAX_BLOCKS;
+  join_scan_place_kernel<<<(unsigned)blocks, JS_PLACE_THREADS, 0, (cudaStream_t)stream>>>(
+      static_cast<const int32_t*>(dest), static_cast<const int32_t*>(mpos), n, cap1, out_rows,
+      aligned, static_cast<int32_t*>(src1), static_cast<int32_t*>(src2));
   return (int)cudaGetLastError();
 }

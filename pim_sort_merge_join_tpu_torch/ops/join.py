@@ -2,16 +2,18 @@
 
 The fused 1:1 join, `_one_to_one_merged`, keeps the JAX package's
 merged-domain design: one 2-key merge sort of both key columns with their
-concat positions, the join-rank scan that gives every merged element its
-output slot, one un-merge sort back to row positions, and one emit sort
-per table that places each row at its slot. Output rows, their order and `num_rows` equal
+concat positions and the join-rank scan that gives every merged element its
+output slot. Where the JAX package then sorts the slots back to row
+positions and each table by slot, the port places each slot's source rows
+straight from the merged domain (`join_scan.place_sources`) and gathers the
+rows once. Output rows, their order and `num_rows` equal
 the JAX package's exactly (1:1 semantics of join.c:160-173: the k-th
 duplicate of a key in table 1 pairs with the k-th duplicate in table 2).
 
-On CUDA tensors the four sorts run the hand-written `hbm_sort` kernels,
-the scan runs the `join_scan` kernels and the rows move through the
-`gather_rows` kernel (`ops/kernels/`); on CPU tensors their plain torch
-versions run.
+On CUDA tensors the merge sort runs the hand-written `hbm_sort` kernels,
+the scan and the placement run the `join_scan` kernels and the rows move
+through the `gather_rows` kernel (`ops/kernels/`); on CPU tensors their
+plain torch versions run.
 
 The inner join (`merge_join_inner`, the staged path's): the standard SQL
 cross product on duplicate keys, over two tables already sorted on their
@@ -42,10 +44,10 @@ from pim_sort_merge_join_tpu_torch.engine import metrics
 from pim_sort_merge_join_tpu_torch.ops.kernels import join_scan
 from pim_sort_merge_join_tpu_torch.ops.kernels.gather import gather_rows
 from pim_sort_merge_join_tpu_torch.ops.sort import (
+    _ALGORITHMS,
     narrow32,
     sort_key_permutation,
     stable_key_sort,
-    stable_key_sort_rows,
 )
 
 
@@ -264,48 +266,42 @@ def _one_to_one_merged(
     1. merge both key columns: one stable sort, whose permutation is each
        element's concat position (t1 first on ties); the scan gives each
        element its output slot or the drop value (stage ``merge``);
-    2. un-merge the slots back to row positions (one sort keyed on the
-       carried position, a permutation inverse; stage ``unmerge``);
-    3. per table, sort rows by output slot: matched rows land densely at
-       the front in key order (stage ``emit``).
+    2. place: each matched element names its row as its slot's source, one
+       table per side (`join_scan.place_sources`, stage ``unmerge``). The
+       matched slots of each side are exactly ``0 .. num_out-1``, so these
+       are the rows the reference's un-merge sort and per-table emit sorts
+       put at each slot;
+    3. emit: one row gather of both tables into the output, zeros from
+       ``num_out`` on (`_emit`, stage ``emit``).
+
+    ``sort_algorithm`` is accepted for the reference's signature and
+    checked as `stable_key_sort` checks it; nothing here sorts by it.
     """
-    cap1, cap2 = t1.capacity, t2.capacity
-    n = cap1 + cap2
-    dev = t1.device
+    if sort_algorithm not in _ALGORITHMS:
+        raise ValueError(f"unknown sort algorithm {sort_algorithm!r}")
+    cap1 = t1.capacity
+    n = cap1 + t2.capacity
 
     # --- 1. merge the key columns (t1 wins ties) ---------------------------
     with metrics.stage("merge"):
         mkeys, mpos = sort_key_permutation(torch.cat([k1, k2]))
         dest, num_out = _merged_dest(mkeys, mpos, cap1)
+    del mkeys
 
-    # --- 2. un-merge: slots back to original row positions -----------------
+    # --- 2. place each output slot's source rows ---------------------------
     with metrics.stage("unmerge"):
-        _, dest_by_pos = stable_key_sort(
-            (mpos, dest), algorithm=sort_algorithm, unique_keys=True
-        )
-        dest1 = dest_by_pos[:cap1]
-        dest2 = dest_by_pos[cap1:]
+        metrics.count(placed=n)
+        src1, src2 = join_scan.place_sources(dest, mpos, cap1, cap1)
+    del dest, mpos
 
-    # --- 3. emit: permute each table's rows to their output slots ----------
-    # Dropped rows (dest = n) are uniquified with their row index so both
-    # emit sorts have unique keys; their slots lie past num_out, where the
-    # row gather writes zeros. Each sort's payload is its table's rows,
-    # written into that table's columns of the output (table 2 without its
-    # key) by one gather for both. The rows move once, in the table's own element type, so
+    # --- 3. emit: both tables' rows into the output ------------------------
+    # The rows move once, in the table's own element type, so
     # ``narrow_data`` has nothing left to narrow here: it is only ever
     # resolved on when every value fits int32, where the result is the same.
-    def _uniq(d: torch.Tensor, cap: int) -> torch.Tensor:
-        iota = torch.arange(cap, dtype=torch.int32, device=dev)
-        return torch.where(d >= n, n + iota, d)
-
     with metrics.stage("emit"):
-        data, data_bits, data1, data2, keep2 = _out_buffer(t1, t2, key2, cap1)
-        metrics.count(bytes_out=data.numel() * data.element_size())
-        stable_key_sort_rows(
-            [(_uniq(dest1, cap1), data1), (_uniq(dest2, cap2), data2, keep2)],
-            algorithm=sort_algorithm, out=data_bits, live=num_out,
-        )
-        return Table(data=data, num_rows=num_out, names=_out_names(t1, t2, key2))
+        out = _emit(t1, t2, key2, src1, src2, num_out)
+        metrics.count(bytes_out=out.data.numel() * out.data.element_size())
+        return out
 
 
 def merge_join_one_to_one(

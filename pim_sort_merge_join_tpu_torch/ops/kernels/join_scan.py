@@ -17,6 +17,11 @@ That needs a carry that is associative. `segment_summary` and `combine`
 are that carry in plain Python, and `join_scan_blocked_plain` walks the
 kernels' dataflow block by block (per-block summaries, an exclusive fold,
 per-block local work) at any block size, so the CPU tests reach it.
+
+`place_sources` (kernel ``join_scan_place_kernel``, replacing the sorts of
+steps 2 and 3 of the JAX package's `ops/join._one_to_one_merged`) turns the
+scan's slots into each output slot's source rows in one pass over the
+merged elements; `place_sources_plain` is its plain version.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import torch
 from pim_sort_merge_join_tpu_torch.ops.kernels import build
 
 # Kernel launches by this module's wrappers, for showing which path ran.
-LAUNCHES = {"join_scan_forward": 0, "join_scan_backward": 0}
+LAUNCHES = {"join_scan_forward": 0, "join_scan_backward": 0, "join_scan_place": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -42,6 +47,7 @@ def _fn(name: str):
             "smj_join_scan_block_size": [],
             "smj_join_scan_forward": [_P, ctypes.c_int, _P, _I64, ctypes.c_int, _P, _P, _P, _P],
             "smj_join_scan_backward": [_P, ctypes.c_int, _P, _P, _I64, _P, _P, _P, _P],
+            "smj_join_scan_place": [_P, _P, _I64, ctypes.c_int, ctypes.c_int, _P, _P, _P],
         }[name]
         _fns[name] = build.c_function(name, argtypes)
     return _fns[name]
@@ -105,7 +111,53 @@ def join_scan_backward(mkeys: torch.Tensor, cand: torch.Tensor, m2: torch.Tensor
     return dest, num_out
 
 
+def place_sources(dest: torch.Tensor, mpos: torch.Tensor, cap1: int, out_rows: int):
+    """Each output slot's source rows: ``(src1, src2)``, int32 ``[out_rows]``.
+
+    For every merged element ``i`` with ``dest[i] < out_rows`` (a matched
+    one: the others carry the drop value ``n``), ``src1[dest[i]] =
+    mpos[i]`` on side 1 (``mpos[i] < cap1``) and ``src2[dest[i]] = mpos[i]
+    - cap1`` on side 2. The matched slots of each side are ``0 ..
+    num_out-1``; the slots from ``num_out`` on are left unwritten. CUDA
+    tensors launch the kernel, CPU tensors take `place_sources_plain`.
+    """
+    if dest.device.type == "cpu" and mpos.device.type == "cpu":
+        return place_sources_plain(dest, mpos, cap1, out_rows)
+    build.require_cuda("join_scan_place", dest, mpos)
+    n = dest.shape[0]
+    if dest.dtype != torch.int32 or mpos.dtype != torch.int32:
+        raise ValueError(f"join_scan_place: dest and mpos must be int32, got {dest.dtype}, {mpos.dtype}")
+    if dest.dim() != 1 or mpos.shape != (n,) or n >= 2**31 or not 0 <= out_rows < 2**31:
+        raise ValueError(
+            f"join_scan_place: dest and mpos must be 1D of one length below 2^31, got "
+            f"{tuple(dest.shape)}, {tuple(mpos.shape)}, out_rows {out_rows}"
+        )
+    src1 = torch.empty(out_rows, dtype=torch.int32, device=dest.device)
+    src2 = torch.empty(out_rows, dtype=torch.int32, device=dest.device)
+    if n == 0:
+        return src1, src2
+    err = _fn("smj_join_scan_place")(
+        dest.data_ptr(), mpos.data_ptr(), n, cap1, out_rows, src1.data_ptr(), src2.data_ptr(),
+        build.stream_ptr(dest),
+    )
+    build.check(err, "join_scan place")
+    LAUNCHES["join_scan_place"] += 1
+    build.launches += 1
+    return src1, src2
+
+
 # --- the plain versions, one per kernel ---------------------------------------
+
+
+def place_sources_plain(dest: torch.Tensor, mpos: torch.Tensor, cap1: int, out_rows: int):
+    """`place_sources` as a masked `index_put_` per side (any device)."""
+    src1 = torch.empty(out_rows, dtype=torch.int32, device=dest.device)
+    src2 = torch.empty(out_rows, dtype=torch.int32, device=dest.device)
+    placed = dest < out_rows
+    side1 = mpos < cap1
+    for src, side, shift in ((src1, placed & side1, 0), (src2, placed & ~side1, cap1)):
+        src.index_put_((dest[side].long(),), mpos[side] - shift)
+    return src1, src2
 
 
 def join_scan_forward_plain(mkeys: torch.Tensor, mpos: torch.Tensor, cap1: int):

@@ -177,6 +177,53 @@ def test_join_scan_repeats_give_one_answer(cuda):
         assert int(num_out) == int(want_num), rep
 
 
+def _placed(dest, num_out, mpos, cap1, place):
+    """The first ``num_out`` slots of each output: the ones the placement fills."""
+    live = int(num_out)
+    return tuple(s[:live] for s in place(dest, mpos, cap1, cap1))
+
+
+def test_place_sources_matches_plain(cuda):
+    import chip_smoke
+    from pim_sort_merge_join_tpu_torch.ops.join import _merged_dest_plain
+    from pim_sort_merge_join_tpu_torch.ops.kernels import join_scan as js
+
+    for name, mkeys, mpos, cap1 in chip_smoke.scan_cases(np.random.default_rng(63)):
+        mk, mp = torch.from_numpy(mkeys).to(cuda), torch.from_numpy(mpos).to(cuda)
+        dest, num_out = _merged_dest_plain(mk, mp, cap1)
+        want = _placed(dest, num_out, mp, cap1, js.place_sources_plain)
+        # As they are, and one element off the 16-byte alignment.
+        for d, p in ((dest, mp), (chip_smoke.one_element_in(dest), chip_smoke.one_element_in(mp))):
+            got = _placed(d, num_out, p, cap1, js.place_sources)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 1023, 1024, 1025, 4095, 4097, 2**20 + 7])
+def test_place_sources_at_its_vector_and_block_edges(cuda, n):
+    """Lengths around the 4-element vectors and the 1024 elements a block
+    takes in one step of its loop, each also offset by one element: a
+    prefix of a merged sequence is one too."""
+    import chip_smoke
+    from pim_sort_merge_join_tpu_torch.ops import kernels
+    from pim_sort_merge_join_tpu_torch.ops.join import _merged_dest_plain
+    from pim_sort_merge_join_tpu_torch.ops.kernels import join_scan as js
+
+    rng = np.random.default_rng(70)
+    half = n // 2 + 1
+    mkeys, mpos, cap1 = chip_smoke.merged_case(rng, half, half, np.arange(1, max(2, n // 3)))
+    mk, mp = torch.from_numpy(mkeys).to(cuda), torch.from_numpy(mpos).to(cuda)
+    for lo in (0, 1):
+        k, p = mk[lo:lo + n], mp[lo:lo + n]
+        dest, num_out = _merged_dest_plain(k, p, cap1)
+        want = _placed(dest, num_out, p, cap1, js.place_sources_plain)
+        kernels.reset_launch_counts()
+        got = _placed(dest, num_out, p, cap1, js.place_sources)
+        assert kernels.launch_counts()["join_scan_place"] == 1
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (n, lo)
+
+
 def test_bitonic_kernel_matches_plain(cuda):
     import chip_smoke
     from pim_sort_merge_join_tpu_torch.ops.kernels import bitonic_sort as bs
@@ -459,6 +506,10 @@ def test_pipeline_on_card_matches_cpu(cuda, key_offset):
     # Narrow keys: every sort carries its operands in the element or moves
     # rows; 64-bit keys: the merge sort gathers its two operands.
     assert ran == (chip_smoke.FUSED_WIDE_KERNELS if key_offset else chip_smoke.FUSED_KERNELS)
+    # One sort, the merge; the placement and one row gather in its place
+    # of the un-merge and emit sorts.
+    assert counts["hbm_sort_chunk"] == 1
+    assert counts["join_scan_place"] == 1
     assert counts["gather_rows"] == 1
     want = QueryPipeline(cfg, device="cpu").run_tables(
         Table.from_numpy(r1, device="cpu"), Table.from_numpy(r2, device="cpu")

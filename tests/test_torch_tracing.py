@@ -40,7 +40,9 @@ def passes(*sizes):
 
 # The sorts each stage runs, by their sizes (elements = their sum).
 SORTS = {
-    "fused": {"merge": [CAP1 + CAP2], "unmerge": [CAP1 + CAP2], "emit": [CAP1, CAP2]},
+    # merge: the one merge sort; unmerge places the slots' sources and emit
+    # gathers the rows, with no sort.
+    "fused": {"merge": [CAP1 + CAP2], "unmerge": [], "emit": []},
     # sort: one row sort per table; join: the inner join's merge and
     # un-merge sorts.
     "staged": {"sort": [CAP1, CAP2], "join": [CAP1 + CAP2, CAP1 + CAP2]},
@@ -137,11 +139,16 @@ def test_record_nests_stages_with_their_counters(path, tmp_path):
         assert (s.get("elements", 0), s.get("passes", 0)) == (sum(want), passes(*want)), name
     if path == "fused":
         assert children["keys"]["rows_in"] == CAP1 + CAP2
+        # The placement reads every merged element.
+        assert children["unmerge"]["placed"] == CAP1 + CAP2
         assert children["emit"]["bytes_out"] == CAP1 * 7 * 8
     if path == "hash":
         inner = {s["stage"]: s for s in children["join"]["stages"]}
         assert list(inner) == ["merge", "unmerge", "emit"]
         for name, sizes in SORTS["fused"].items():
             # The join core sorts table 1 with its row index column.
-            assert inner[name]["elements"] == sum(sizes), name
-            assert inner[name]["passes"] == passes(*sizes), name
+            assert inner[name].get("elements", 0) == sum(sizes), name
+            assert inner[name].get("passes", 0) == passes(*sizes), name
+        assert inner["unmerge"]["placed"] == CAP1 + CAP2
+        # Table 1 with its row index column, table 2 without its key.
+        assert inner["emit"]["bytes_out"] == CAP1 * 8 * 8
