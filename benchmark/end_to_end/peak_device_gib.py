@@ -1,5 +1,6 @@
 """`torch.cuda.max_memory_allocated()` over the warm-up and the window,
-after a reset once the inputs were made, so it counts resident tables."""
+after a reset once the inputs were made, so it counts resident tables; on
+a cell of several cards, that of the fullest card."""
 
 
 def read(w):

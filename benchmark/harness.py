@@ -17,6 +17,13 @@ still, and once the window has closed and the program's state is freed,
 the plain reference works each out again from inputs it makes itself from
 the seed, and the rows are compared exactly. With tracing on, the first
 ``trace_queries`` queries of the window run under `torch.profiler`.
+
+A cell whose traffic mode is sharded runs all of that on ``cell.chips``
+ranks, one process a card, this process rank 0 (`benchmark/ranks.py`):
+rank 0 keeps the clock and says which query comes next; the peak is the
+fullest card's; the readers read rank 0's traced window, which carries
+every rank's beside it; the check compares every rank's rows, in rank
+order, on rank 0 once the other ranks have exited.
 """
 
 from __future__ import annotations
@@ -136,24 +143,74 @@ class Loop:
 
 
 def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
-        setup: SetupClock | None = None, log=None) -> dict:
+        setup: SetupClock | None = None, log=None, rank_hook=None) -> dict:
     """Run ``cell`` once; returns the result line as a dict. ``setup`` is
-    the clock started with the process, if any."""
+    the clock started with the process, if any. A cell whose traffic mode
+    is sharded runs on ``cell.chips`` ranks with this process as rank 0
+    (`benchmark/ranks.py`; ``rank_hook`` as `ranks.Ranks` takes it)."""
     setup = setup or SetupClock()
     log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
-    device = torch.device(device)
+    mode_module = load_module("traffic", f"mode_{cell.traffic['mode']}")
+    if not getattr(mode_module.Mode, "sharded", False):
+        device = torch.device(device)
+        side = play(cell, seed, seconds, trace, device, setup, mode_module)
+        return report(cell, seed, device, [side], setup, log)
+    from benchmark import ranks
+
+    others = ranks.Ranks(cell, seed, seconds, trace, device, rank_hook)
+    try:
+        with others as group:
+            setup.lap("ranks")
+            side = play(cell, seed, seconds, trace, group.device, setup, mode_module, group)
+            sides = [side]
+            if not group.failed:
+                try:
+                    sides += [Side(None, peak, tw, side.rows_per_table, leaked)
+                              for peak, tw, leaked in group.gather((side.peak, side.tw, []))[1:]]
+                except RuntimeError as exc:  # a rank that died after the window
+                    side.loop.errors.append(f"after the window: {type(exc).__name__}: {exc}")
+                    group.fail()
+    finally:
+        for msg in others.errors:
+            log(f"failed: {msg}")
+    # Every child has ended and the group is gone.
+    return report(cell, seed, group.device, sides, setup, log, group)
+
+
+@dataclasses.dataclass
+class Side:
+    """What one rank's set-up and window gave (the loop: rank 0's;
+    ``leaked``: a rank > 0's forbidden modules once its window closed)."""
+
+    loop: Loop | None
+    peak: int
+    tw: traced.TracedWindow | None
+    rows_per_table: tuple
+    leaked: list = dataclasses.field(default_factory=list)
+
+
+def memory_peak(device: torch.device) -> int:
+    """The most device memory this process has held since the reset after
+    the inputs."""
+    return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+
+
+def play(cell: Cell, seed: int, seconds: float, trace: bool, device: torch.device,
+         setup: SetupClock, mode_module, group=None) -> Side:
+    """This rank's set-up, warm-up and window (the only rank of a cell of
+    one process), its peak, and with ``trace`` its traced window."""
     from benchmark import program
 
     config, traffic = cell.config, cell.traffic
     generator = load_module("datagen", config["generator"])
-    mode_module = load_module("traffic", f"mode_{traffic['mode']}")
     setup.lap("harness")
 
     # Set-up: the card's context, the inputs, then the cell's own queries as
     # warm-up (the first builds or loads the kernels).
     _sync(device)
     setup.lap("context")
-    mode = mode_module.Mode(config, traffic, seed, device, program, generator)
+    extra = {} if group is None else {"group": group}
+    mode = mode_module.Mode(config, traffic, seed, device, program, generator, **extra)
     _sync(device)
     setup.lap("inputs")
     if device.type == "cuda":
@@ -166,7 +223,6 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "cuda"
         setup.lap(f"warmup_{i}")
     gc.collect()
     setup.lap("collect")
-    setup_s = setup.total()
 
     prof = None
     trace_queries = int(traffic["trace_queries"]) if trace else 0
@@ -175,25 +231,52 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "cuda"
         if device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=activities)
-    loop = measure(mode, program, cell, seed, seconds, prof, trace_queries, device)
-    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
-    leaked = forbidden_modules()
+    loop = measure(mode, program, cell, seed, seconds, prof, trace_queries, device, group)
+    peak = memory_peak(device)
     rows_per_table, out_ncol, item_bytes = mode.rows_per_table, mode.out_ncol, mode.item_bytes
+    # A rank of a sharded mode reads its own block of each table.
+    local_rows = getattr(mode, "local_rows_per_table", rows_per_table)
     del mode
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-
-    card = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    result = {"correct": False, "attempted": loop.attempted, "failed": len(loop.errors)}
-    dev = {"platform": "gpu" if device.type == "cuda" else "cpu", "kind": card,
-           "count": cell.chips, "memory_peak_bytes": peak}
-    metrics = {}
+    tw = None
     if prof is not None:
-        least = sum(roofline.least_bytes(rows_per_table, out_ncol, r, item_bytes)
+        card = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+        least = sum(roofline.least_bytes(local_rows, out_ncol, r, item_bytes)
                     for r in loop.traced_rows)
         tw = traced.from_profiler(prof, len(loop.traced_rows), least,
                                   roofline.peak_bytes_per_s(card))
+    return Side(loop, peak, tw, rows_per_table)
+
+
+def run_rank(cell: Cell, seed: int, seconds: float, trace: bool, group) -> None:
+    """A rank > 0 of a sharded cell: what rank 0 does until the window
+    closes, then its peak, traced window and forbidden modules to rank 0."""
+    mode_module = load_module("traffic", f"mode_{cell.traffic['mode']}")
+    side = play(cell, seed, seconds, trace, group.device, SetupClock(), mode_module, group)
+    group.gather((side.peak, side.tw, forbidden_modules()))
+
+
+def report(cell: Cell, seed: int, device: torch.device, sides: list, setup: SetupClock, log,
+           group=None) -> dict:
+    """The result line from every rank's side (rank 0's first, the only
+    one with its loop), after the check. A forbidden module loaded on any
+    rank makes the run not correct."""
+    loop = sides[0].loop
+    leaked = sorted(set(forbidden_modules()).union(*(s.leaked for s in sides)))
+    card = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    result = {"correct": False, "attempted": loop.attempted, "failed": len(loop.errors)}
+    peaks = [s.peak for s in sides]
+    dev = {"platform": "gpu" if device.type == "cuda" else "cpu", "kind": card,
+           "count": cell.chips, "memory_peak_bytes": max(peaks)}
+    if group is not None:
+        dev["memory_peak_bytes_by_rank"] = peaks
+    metrics = {}
+    tw = sides[0].tw
+    if tw is not None:
+        if group is not None:
+            tw.ranks = [dataclasses.replace(s.tw, ranks=[]) for s in sides]
         if tw.spans:
             start, end = tw.window
             busy_us = traced.overlap(traced.busy(tw.device_ops), [(start, end)])
@@ -202,7 +285,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "cuda"
             for m in cell.per_layer:
                 metrics[m["name"]] = (load_module("layers", m["name"]).read(tw), m["unit"])
     else:
-        w = Window(loop.latencies_s, loop.window_s, sum(rows_per_table), peak, setup_s)
+        w = Window(loop.latencies_s, loop.window_s, sum(sides[0].rows_per_table), max(peaks),
+                   setup.total())
         for m in cell.end_to_end:
             metrics[m["name"]] = (load_module("end_to_end", m["name"]).read(w), m["unit"])
     if device.type == "cuda":
@@ -210,12 +294,16 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "cuda"
     result["metrics"] = {name: {"value": value, "unit": unit}
                          for name, (value, unit) in metrics.items() if value is not None}
     result["device"] = dev
+    if group is not None:
+        result["ranks"] = {"world": group.world, "backend": group.backend,
+                           "failed": group.failed, "forbidden": leaked,
+                           "control_ms_per_query": group.control_s * 1e3 / (loop.attempted + 1)}
     result["setup_parts"] = setup.parts
     log("setup " + " ".join(f"{k} {v:.3f}" for k, v in setup.parts.items()))
 
-    checks = check(config, seed, loop.kept, loop.errors, device, log)
+    checks = check(cell.config, seed, loop.kept, loop.errors, device, log)
     result["checked"] = len(loop.kept)
-    result["correct"] = (bool(loop.kept) and not leaked
+    result["correct"] = (bool(loop.kept) and not leaked and not (group and group.failed)
                          and all(c["value"] <= c["limit"] for c in checks.values()))
     result["checks"] = checks
     for msg in loop.errors[:5]:
@@ -228,9 +316,12 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "cuda"
 
 
 def measure(mode, program, cell: Cell, seed: int, seconds: float, prof, trace_queries: int,
-            device: torch.device) -> Loop:
+            device: torch.device, group=None) -> Loop:
     """The measured window: a closed loop of one client for ``seconds``,
-    not counting the checked queries' copies to host memory."""
+    not counting the checked queries' copies to host memory. With a
+    ``group`` (`benchmark/ranks.py`), rank 0 says before each query which
+    comes next, or that the window has closed, and the others follow; a
+    failure on any rank ends the window, counted on rank 0."""
     config, traffic = cell.config, cell.traffic
     every = int(traffic["check_every"])
     offset = derive(seed, "check") % every
@@ -241,29 +332,48 @@ def measure(mode, program, cell: Cell, seed: int, seconds: float, prof, trace_qu
     if prof is not None:
         prof.start()
     window_start = time.perf_counter()
-    while time.perf_counter() - window_start - paused < seconds:
-        i = loop.attempted
-        loop.attempted += 1
-        p = next(params)
-        tracing = prof is not None and i < trace_queries
-        try:
-            t0 = time.perf_counter()
-            cfg = program.engine_config(stream.substitute(config["engine"], p))
-            outcome = mode.query(i, cfg, _span if tracing else _no_span)
-            loop.latencies_s.append(time.perf_counter() - t0)
-        except Exception as exc:  # a query that fails is counted and reported
-            loop.errors.append(f"query {i} {p}: {type(exc).__name__}: {exc}")
-            continue
-        if tracing:
-            loop.traced_rows.append(outcome.rows_out())
-            if i + 1 == trace_queries:
-                _sync(device)
-                prof.stop()
-        if i == first_checked or (i > first_checked and (i - offset) % every == 0):
-            c0 = time.perf_counter()
-            loop.kept.append((i, p, mode.pair(i), outcome.fetch()))
-            paused += time.perf_counter() - c0
-        del outcome  # the result's memory is free before the next query
+    try:
+        while True:
+            i = loop.attempted
+            more = time.perf_counter() - window_start - paused < seconds
+            if group is not None:
+                group.check()
+                word = group.next_query(i if more else None)
+                if word not in (i, None):
+                    raise RuntimeError(f"rank {group.rank} is at query {i}, rank 0 at {word}")
+                more = word is not None
+            if not more:
+                break
+            loop.attempted += 1
+            p = next(params)
+            tracing = prof is not None and i < trace_queries
+            try:
+                t0 = time.perf_counter()
+                cfg = program.engine_config(stream.substitute(config["engine"], p))
+                outcome = mode.query(i, cfg, _span if tracing else _no_span)
+                if group is not None:
+                    group.check()
+                loop.latencies_s.append(time.perf_counter() - t0)
+            except Exception as exc:  # a query that fails is counted and reported
+                if group is not None:
+                    raise
+                loop.errors.append(f"query {i} {p}: {type(exc).__name__}: {exc}")
+                continue
+            if tracing:
+                loop.traced_rows.append(outcome.rows_out())
+                if i + 1 == trace_queries:
+                    _sync(device)
+                    prof.stop()
+            if i == first_checked or (i > first_checked and (i - offset) % every == 0):
+                c0 = time.perf_counter()
+                loop.kept.append((i, p, mode.pair(i), outcome.fetch()))
+                paused += time.perf_counter() - c0
+            del outcome  # the result's memory is free before the next query
+    except Exception as exc:
+        if group is None or group.rank:
+            raise
+        loop.errors.append(f"query {loop.attempted - 1}: {type(exc).__name__}: {exc}")
+        group.fail()
     loop.window_s = time.perf_counter() - window_start - paused
     if prof is not None and len(loop.traced_rows) < trace_queries:
         _sync(device)

@@ -12,7 +12,9 @@ which also end standard error.
 
 It exits 2, printing no result, without a card (or with fewer than the
 cell asks for), and 3 if a module of JAX or of the JAX package is loaded
-once the window has closed. Build and kernel caches are kept at fixed
+once the window has closed, in this process or in any rank's. A cell of
+several ranks (`ranks.py`) in which a rank failed prints its result,
+``correct`` false, and exits 4. Build and kernel caches are kept at fixed
 paths inside the checkout.
 """
 
@@ -71,13 +73,14 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     result = harness.run(cell, args.seed, args.seconds, bool(args.trace), "cuda", setup)
-    leaked = harness.forbidden_modules()
+    leaked = sorted(set(harness.forbidden_modules())
+                    | set(result.get("ranks", {}).get("forbidden", [])))
     if leaked:
         print(f"run.py: forbidden modules loaded: {', '.join(leaked)}", file=sys.stderr)
         return 3
     sys.stderr.flush()
     print(json.dumps(result), flush=True)
-    return 0
+    return 4 if result.get("ranks", {}).get("failed") else 0
 
 
 if __name__ == "__main__":

@@ -3,12 +3,14 @@
 The program marks each step of a query with a span ``smj.<stage>`` while
 the profiler records (`pim_sort_merge_join_tpu_torch/engine/metrics`), flat
 inside `run_tables`, and each host readback with a nested ``smj.sync``.
-Here every device op inside the traced ``bench.query`` spans is given to
-the stage whose span was open when its launch call was made. A query's
-work runs on one stream, so its device ops start in the order of their
-launch calls: the k-th launch call of a query (`LAUNCH`) is the k-th
-device op that starts inside it. Where a query's launch calls and device
-ops differ in number, nothing is attributed. All times are microseconds.
+Here every device op that a traced ``bench.query`` span launched is given
+to the stage whose span was open when its launch call (`LAUNCH`) was
+made. The op and its call are paired by the profiler's correlation id
+(`traced.TracedWindow.device_op_ids`), so the pairing holds whatever
+stream the op ran on and wherever the device's clock sits against the
+host's; the query and the stage are read on the host's clock alone. An op
+whose launch call is not in the window goes to no stage, and to no query
+unless it starts inside one. All times are microseconds.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from __future__ import annotations
 import bisect
 import re
 
-from benchmark.traced import busy, overlap
+from benchmark.traced import busy, overlap, union
 
 STAGE_PREFIX = "smj."
 SYNC = STAGE_PREFIX + "sync"
@@ -31,26 +33,35 @@ def _stage_spans(tw) -> list:
 
 
 def attribute(tw) -> dict | None:
-    """The device ops inside the traced queries by the stage that launched
-    them (None: no stage span was open), or None where the launch calls and
-    the device ops of a query do not pair or there is nothing to read."""
+    """The device ops of the traced queries by the stage that launched
+    them (None: no stage span was open, or no launch call was found), or
+    None where the window keeps no correlation ids or has nothing to read.
+    An op belongs to a query if its launch call was made inside the
+    query's span, or, with no launch call in the window, if it starts
+    inside it."""
     queries = tw.spans.get("query")
-    if not queries or not tw.device_ops:
+    if (not queries or not tw.device_ops or len(tw.device_op_ids) != len(tw.device_ops)
+            or len(tw.host_op_ids) != len(tw.host_ops)):
         return None
     stages = _stage_spans(tw)
     starts = [s for s, _, _ in stages]
-    calls = sorted(s for n, s, _ in tw.host_ops if LAUNCH.match(n))
-    ops = sorted(tw.device_ops, key=lambda op: op[1])
-    op_starts = [op[1] for op in ops]
+    launched = {i: s for (n, s, _), i in zip(tw.host_ops, tw.host_op_ids) if LAUNCH.match(n)}
+    spans = union(queries)
+    span_starts = [s for s, _ in spans]
+
+    def in_query(t: float) -> bool:
+        i = bisect.bisect_right(span_starts, t) - 1
+        return i >= 0 and t < spans[i][1]
+
     out: dict = {}
-    for qs, qe in queries:
-        q_calls = calls[bisect.bisect_left(calls, qs):bisect.bisect_left(calls, qe)]
-        q_ops = ops[bisect.bisect_left(op_starts, qs):bisect.bisect_left(op_starts, qe)]
-        if len(q_calls) != len(q_ops):
-            return None
-        for t, op in zip(q_calls, q_ops):
-            i = bisect.bisect_right(starts, t) - 1
-            stage = stages[i][2] if i >= 0 and t < stages[i][1] else None
+    for op, i in zip(tw.device_ops, tw.device_op_ids):
+        t = launched.get(i)
+        if t is None:
+            if in_query(op[1]):
+                out.setdefault(None, []).append(op)
+        elif in_query(t):
+            j = bisect.bisect_right(starts, t) - 1
+            stage = stages[j][2] if j >= 0 and t < stages[j][1] else None
             out.setdefault(stage, []).append(op)
     return out
 

@@ -4,6 +4,13 @@ arithmetic the per-layer readers share.
 The harness marks its own spans with `torch.profiler.record_function`
 (``bench.<name>``: ``bench.query`` around `QueryPipeline.run_tables`),
 so they share the profiler's clock with the device's activity. All times are microseconds.
+
+Each device op and each host operation also keeps the profiler's
+correlation id (`FunctionEvent.id`): a kernel, copy or memset has the id
+of the runtime call that launched it (``cudaLaunchKernel``,
+``cudaMemcpyAsync``, ``cudaMemsetAsync``; torch 2.11 on an H100). Torch's
+own operators number their events in another series, so an id ties a
+device op only to a launch call.
 """
 
 from __future__ import annotations
@@ -28,6 +35,11 @@ class TracedWindow:
     ``queries`` the queries the window traced; ``least_bytes`` what they
     need to move at the least (`roofline.least_bytes`), summed;
     ``peak_bytes_per_s`` the card's published memory rate or None.
+    ``device_op_ids`` and ``host_op_ids`` are the correlation ids of
+    ``device_ops`` and ``host_ops``, index for index (empty: not kept).
+    On a cell of several ranks (`benchmark/ranks.py`) this is rank 0's
+    window, and ``ranks`` holds every rank's, in rank order (each with
+    ``ranks`` empty); compare times only within one rank's window.
     """
 
     device_ops: list
@@ -36,6 +48,9 @@ class TracedWindow:
     queries: int
     least_bytes: float
     peak_bytes_per_s: float | None
+    device_op_ids: list = dataclasses.field(default_factory=list)
+    host_op_ids: list = dataclasses.field(default_factory=list)
+    ranks: list = dataclasses.field(default_factory=list)
 
     @property
     def window(self) -> Interval:
@@ -103,7 +118,7 @@ def from_profiler(prof, queries: int, least_bytes: float,
     """A `TracedWindow` from a finished `torch.profiler.profile`."""
     from torch.autograd import DeviceType
 
-    device_ops, spans, host = [], {}, []
+    device_ops, device_ids, spans, host = [], [], {}, []
     span_thread = None
     for e in prof.events():
         start, end = e.time_range.start, e.time_range.end
@@ -111,13 +126,15 @@ def from_profiler(prof, queries: int, least_bytes: float,
             # A span's range on the device timeline is no device work.
             if not e.name.startswith(SPAN_PREFIX) and not getattr(e, "is_user_annotation", False):
                 device_ops.append((e.name, start, end))
+                device_ids.append(e.id)
         elif e.name.startswith(SPAN_PREFIX):
             spans.setdefault(e.name[len(SPAN_PREFIX):], []).append((start, end))
             span_thread = e.thread
         else:
-            host.append((e.name, start, end, e.thread))
-    host_ops = [(n, s, e) for n, s, e, t in host if t == span_thread]
-    return TracedWindow(device_ops, spans, host_ops, queries, least_bytes, peak_bytes_per_s)
+            host.append((e.name, start, end, e.thread, e.id))
+    mine = [op for op in host if op[3] == span_thread]
+    return TracedWindow(device_ops, spans, [(n, s, e) for n, s, e, _, _ in mine], queries,
+                        least_bytes, peak_bytes_per_s, device_ids, [i for *_, i in mine])
 
 
 def host_chains(host_ops, spans: dict, times) -> list[str]:
