@@ -22,7 +22,9 @@ Phases, in order; any failure exits non-zero:
      the row gather over widths, windows, block edges, live counts and two
      tables in one call; the column gather over lengths and alignments; both
      radix sorts over tiles, digit widths, key bits, operand counts and
-     arrays one element off their alignment),
+     arrays one element off their alignment; the narrow probe's extremes
+     over row widths, key columns, types, edge values, views and sizes,
+     and its errors on empty buffers),
      then the shapes the paths give them, timed with CUDA events (median of
      3 after a warmup): the fused path's at 10M rows/table (its merge
      sort as phase A, phase B and whole, beside stable `torch.sort` of the
@@ -40,7 +42,9 @@ Phases, in order; any failure exits non-zero:
      at the fused path's merge sort and at the replaced un-merge and emit
      sorts, which must equal
      `hbm_sort`'s result element for element and the plain version on the
-     first 2^18 elements, beside `hbm_sort` and stable `torch.sort`;
+     first 2^18 elements, beside `hbm_sort` and stable `torch.sort`; and
+     the narrow probe over the 10M tables' buffers, beside `torch.aminmax`
+     of each buffer;
   4. the query at 100k rows/table through `QueryPipeline.run_csv`: rows and
      CSV bytes equal the numpy oracle's;
   5. the fused query at 10M rows/table through `run_tables` (the main
@@ -606,6 +610,121 @@ def one_element_in(t):
     return torch.cat([t[:1], t])[1:]
 
 
+I64MIN, I64MAX = np.iinfo(np.int64).min, np.iinfo(np.int64).max
+# The int32 narrowing window's edges and the 64-bit extremes.
+PROBE_EDGES = np.array([I64MIN, I64MIN + 1, -(2**31) - 1, -(2**31), 2**31 - 2, 2**31 - 1, 2**31,
+                        I64MAX - 1, I64MAX], np.int64)
+
+
+def probe_table(rng, rows: int, ncol: int, key: int, plant: str):
+    """``rows x ncol`` int64 in the int32 window; ``plant`` puts edge values
+    at random rows: "key" in the key column, "other" in the other columns
+    (all columns when there is no other), "both", or "none"."""
+    d = rng.integers(-(2**31), 2**31 - 1, (rows, ncol), dtype=np.int64)
+    others = [c for c in range(ncol) if c != key] or [key]
+    cols = {"key": [key], "other": others, "both": [key] + others, "none": []}[plant]
+    for c in cols:
+        for v in rng.choice(PROBE_EDGES, size=min(rows, 3), replace=False):
+            d[rng.integers(rows), c] = v
+    return d
+
+
+def probe_cases(rng):
+    """The narrow probe's inputs: ``(name, d1, d2, k1, k2)``, numpy, both
+    int64 or both uint64 (the int64 bits, so values from 2^63 on). Row
+    widths 1, 3, 4 and 7, key columns that differ between the tables,
+    element counts that are odd or leave a 16-byte pair split across rows,
+    tables of different sizes, edge values in or out of the key columns,
+    and tables whose loads cross many blocks."""
+    cases = []
+    shapes = [((1, 1), (1, 1)), ((3, 7), (5, 3)), ((4, 4), (1001, 999)), ((7, 3), (40_003, 70_001)),
+              ((4, 1), (3, 8)), ((1, 4), (70_001, 1)), ((3, 3), (12_345, 7)),
+              ((4, 4), (1_000_003, 1_500_001)), ((7, 1), (300_001, 2_000_000))]
+    plants = ["key", "other", "both", "none"]
+    for i, ((ncol1, ncol2), (rows1, rows2)) in enumerate(shapes):
+        for j, (k1, k2) in enumerate(sorted({(0, 0), (ncol1 - 1, 0), (0, ncol2 - 1),
+                                             (ncol1 // 2, ncol2 - 1)})):
+            plant1, plant2 = plants[(i + j) % 4], plants[(i + 2 * j + 1) % 4]
+            d1 = probe_table(rng, rows1, ncol1, k1, plant1)
+            d2 = probe_table(rng, rows2, ncol2, k2, plant2)
+            name = f"{rows1}x{ncol1} k{k1} {plant1} / {rows2}x{ncol2} k{k2} {plant2}"
+            cases.append((name, d1, d2, k1, k2))
+            if (i + j) % 2 == 0:
+                cases.append((name + " uint64", d1.view(np.uint64), d2.view(np.uint64), k1, k2))
+    return cases
+
+
+def probe_views(t):
+    """The same values as ``t`` (a 2D tensor) in other layouts: as it
+    is, one element off the 16-byte alignment, every other row of a
+    buffer twice as long, columns 1.. of a wider table, and column-major.
+    Built on int64 bits: torch has few uint64 ops on CUDA."""
+    import torch
+
+    b = t.view(torch.int64)
+    rows, ncol = b.shape
+    flat = b.reshape(-1)
+    spaced = torch.zeros((2 * rows, ncol), dtype=torch.int64, device=b.device)
+    spaced[::2] = b
+    wide = torch.zeros((rows, ncol + 2), dtype=torch.int64, device=b.device)
+    wide[:, 1:ncol + 1] = b
+    views = {"contiguous": b, "one element in": one_element_in(flat).view(rows, ncol),
+             "every other row": spaced[::2], "column slice": wide[:, 1:ncol + 1],
+             "column-major": b.t().contiguous().t()}
+    return {name: v.view(t.dtype) for name, v in views.items()}
+
+
+def probe_err(case) -> int:
+    """Values of `narrow_extremes_cuda` that differ from the plain
+    version's, over every pair of views of the case's tables; one launch a
+    call, each on the scratch of the one before."""
+    import torch
+
+    from pim_sort_merge_join_tpu_torch.engine.pipeline import narrow_extremes_plain
+    from pim_sort_merge_join_tpu_torch.ops.kernels import probe
+
+    name, a1, a2, k1, k2 = case
+    d1, d2 = (torch.from_numpy(a).cuda() for a in (a1, a2))
+    want = torch.cat(narrow_extremes_plain(d1, d2, k1, k2))
+    v1, v2 = probe_views(d1), probe_views(d2)
+    err = 0
+    for w1, w2 in zip(v1.values(), list(v2.values())[1:] + list(v2.values())[:1]):
+        for a, b in ((w1, w2), (v1["contiguous"], w2), (w1, v2["contiguous"])):
+            before = probe.LAUNCHES["narrow_extremes"]
+            got = torch.cat(probe.narrow_extremes_cuda(a, b, k1, k2))
+            check(probe.LAUNCHES["narrow_extremes"] == before + 1,
+                  f"narrow_extremes case {name}: not one launch")
+            err += int((got != want).sum())
+    return err
+
+
+def probe_error_cases():
+    """Calls at the edge of what the plain version takes: ``(name, d1, d2,
+    k1, k2)`` as int64 shapes, each an empty buffer or a key column out of
+    range, and negative key columns, which it reads from the row's end."""
+    return [("empty first", (0, 4), (5, 4), 0, 0), ("empty second", (5, 4), (0, 4), 1, 2),
+            ("both empty", (0, 3), (0, 3), 0, 0), ("no columns", (5, 0), (5, 4), 0, 0),
+            ("key past the row", (5, 4), (5, 4), 4, 0), ("second key past", (5, 4), (5, 3), 0, 3),
+            ("negative key", (5, 4), (5, 4), -1, -4), ("key before the row", (5, 4), (5, 4), -5, 0),
+            ("empty, key past", (0, 4), (5, 4), 7, 0)]
+
+
+def probe_error(case, device) -> tuple[str, str] | None:
+    """``(type, message)`` that `narrow_extremes` raises on ``device`` for
+    an error case, or None where it returns."""
+    import torch
+
+    from pim_sort_merge_join_tpu_torch.engine.pipeline import narrow_extremes
+
+    _, s1, s2, k1, k2 = case
+    d1, d2 = (torch.arange(np.prod(s), dtype=torch.int64, device=device).view(s) for s in (s1, s2))
+    try:
+        narrow_extremes(d1, d2, k1, k2)
+    except Exception as e:  # noqa: BLE001 - the error itself is compared
+        return type(e).__name__, str(e)
+    return None
+
+
 def plain_sort_pairs(keys, vals):
     """`sort_pairs` with the plain network, on the tensors' own device."""
     import torch
@@ -656,11 +775,19 @@ def phase_adversarial(rng) -> dict[str, int]:
     from pim_sort_merge_join_tpu_torch.ops.kernels import radix_sort as rs
 
     errs = {"sort": 0, "scan": 0, "scan_forward": 0, "scan_backward": 0, "place": 0, "bitonic": 0,
-            "radix": 0, "lsd": 0, "gather_rows": 0, "gather": 0}
+            "radix": 0, "lsd": 0, "gather_rows": 0, "gather": 0, "probe": 0}
     sorts, scans = sort_cases(rng), scan_cases(rng)
     bitonics, radixes, lsds = bitonic_cases(rng), radix_cases(rng), lsd_cases(rng)
     widths = bitonic_width_cases(rng, bs.LOG_TILE)
     rows, columns = gather_rows_cases(rng), column_gather_cases(rng)
+    probes = probe_cases(rng)
+    for case in probes:
+        err = probe_err(case)
+        check(err == 0, f"narrow_extremes case {case[0]}: kernel differs from plain ({err} values)")
+        errs["probe"] = max(errs["probe"], err)
+    for case in probe_error_cases():
+        got, want = probe_error(case, "cuda"), probe_error(case, "cpu")
+        check(got == want, f"narrow_extremes error case {case[0]}: {got}, the plain version {want}")
     for case in rows:
         err = rows_err(case)
         check(err == 0, f"gather_rows case {case[0]}: kernel differs from plain (max err {err})")
@@ -714,7 +841,8 @@ def phase_adversarial(rng) -> dict[str, int]:
     torch.cuda.synchronize()
     log(f"adversarial: {len(sorts)} sort, {len(scans)} scan, {len(bitonics)} + {len(widths)} "
         f"bitonic, {len(radixes)} radix tile, {len(lsds)} global radix, {len(rows)} row gather, "
-        f"{len(columns)} column gather cases equal")
+        f"{len(columns)} column gather, {len(probes)} + {len(probe_error_cases())} narrow probe "
+        "cases equal")
     return errs
 
 
@@ -823,6 +951,40 @@ def time_place(rec: dict, dest, num_out, mpos, cap1: int) -> None:
     rec["place_plain_ms"] = time_ms(lambda _: js.place_sources_plain(dest, mpos, cap1, cap1))
     rec["place_library_ms"] = time_ms(lambda _: buf.index_put_((slot,), vals), reps=9)
     rec["place_bound"] = bound(nbytes(dest, mpos) + 2 * 4 * live)
+
+
+def phase_probe_shape(r1, r2) -> dict:
+    """The narrow probe over the fused query's two table buffers: equal to
+    its plain version, launched once a call; its time, the plain version's,
+    `torch.aminmax` of each buffer (the library's; it finds the values'
+    extremes alone) and its bound, both buffers read once. The kernel and
+    the library call are timed 20 calls back to back, per call (median of
+    9), so that the wrapper's host time, which the card hides behind the
+    launch before, does not count."""
+    import torch
+
+    from pim_sort_merge_join_tpu_torch import Table
+    from pim_sort_merge_join_tpu_torch.engine.pipeline import narrow_extremes_plain
+    from pim_sort_merge_join_tpu_torch.ops.kernels import probe
+
+    d1, d2 = Table.from_numpy(r1).data, Table.from_numpy(r2).data
+    want = torch.cat(narrow_extremes_plain(d1, d2, 0, 0))
+    before = probe.LAUNCHES["narrow_extremes"]
+    err = 0
+    for _ in range(20):  # each launch on the scratch the one before left
+        err += int((torch.cat(probe.narrow_extremes_cuda(d1, d2, 0, 0)) != want).sum())
+    check(err == 0, f"narrow_extremes at the query's shape: {err} values differ from plain")
+    check(probe.LAUNCHES["narrow_extremes"] == before + 20, "narrow_extremes: not one launch a call")
+    def per_call(fn):
+        return time_ms(lambda _: [fn() for _ in range(20)], reps=9) / 20
+
+    rec = {"err": err, "shape": [list(d1.shape), list(d2.shape)],
+           "ms": per_call(lambda: probe.narrow_extremes_cuda(d1, d2, 0, 0)),
+           "plain_ms": time_ms(lambda _: narrow_extremes_plain(d1, d2, 0, 0)),
+           "library_ms": per_call(lambda: (torch.aminmax(d1), torch.aminmax(d2))),
+           **bound(nbytes(d1, d2))}
+    log("narrow probe at the query's shape: " + json.dumps(rec))
+    return rec
 
 
 def wide_merged_keys():
@@ -1264,6 +1426,12 @@ FUSED_KERNELS = {"hbm_sort_chunk", "hbm_sort_merge", "gather_rows",
 FUSED_WIDE_KERNELS = FUSED_KERNELS | {"hbm_sort_gather"}
 STAGED_KERNELS = {"hbm_sort_chunk", "hbm_sort_merge", "hbm_sort_gather", "gather_rows"}
 STAGED_BITONIC_KERNELS = STAGED_KERNELS | {"bitonic_local", "bitonic_strided"}
+# The narrow probe's kernel, once a query, beside a path's kernels wherever
+# `run_tables` (one device or several) resolves an "auto" narrow_keys or
+# narrow_data on int64/uint64 tables. `pipeline_core`, the operators, CSV
+# queries (probed on the host) and a resumable run on one device probe
+# nothing on the card.
+PROBE_KERNELS = {"narrow_extremes"}
 
 
 def staged_inputs(n: int, sort_algorithm: str):
@@ -1634,7 +1802,7 @@ def phase_types(r1, r2, cfg, a1, a2, acfg) -> dict:
     u1, u2 = (Table.from_numpy(shifted_key(r, np.uint64, hi), dtype=np.uint64) for r in (r1, r2))
     rec["uint64 fused 10M"] = typed_query(
         u1, u2, dataclasses.replace(cfg, dtype="uint64", predicate1=upred, predicate2=upred),
-        shifted_key(want, np.uint64, hi), "uint64 fused 10M", TYPED_FUSED_KERNELS)
+        shifted_key(want, np.uint64, hi), "uint64 fused 10M", TYPED_FUSED_KERNELS | PROBE_KERNELS)
     del u1, u2
     f1, f2 = (Table.from_numpy(r, dtype=np.float64) for r in (r1, r2))
     fcfg = dataclasses.replace(cfg, dtype="float64")
@@ -1650,7 +1818,8 @@ def phase_types(r1, r2, cfg, a1, a2, acfg) -> dict:
     u1, u2 = (Table.from_numpy(shifted_key(r, np.uint64, hi), dtype=np.uint64) for r in (a1, a2))
     rec["uint64 staged inner 10M"] = typed_query(
         u1, u2, dataclasses.replace(acfg, dtype="uint64", predicate1=apred, predicate2=apred),
-        shifted_key(want_a, np.uint64, hi), "uint64 staged inner 10M", TYPED_STAGED_KERNELS)
+        shifted_key(want_a, np.uint64, hi), "uint64 staged inner 10M",
+        TYPED_STAGED_KERNELS | PROBE_KERNELS)
     del u1, u2
     for label, r in rec.items():
         check(r["narrow_keys"] is False, f"{label}: keys narrowed, the wide kernels did not run")
@@ -2058,9 +2227,10 @@ DIST_RANKS = 4
 # pack and union sort, and the inner join's or the aggregate's kernels;
 # with ``sort_algorithm="pallas_bitonic"`` the inner join's local table
 # sorts run the bitonic kernel.
-DIST_FUSED_KERNELS = FUSED_KERNELS
-DIST_STAGED_KERNELS = STAGED_KERNELS
-DIST_STAGED_BITONIC_KERNELS = STAGED_BITONIC_KERNELS
+# Every run but the aggregate resolves narrow keys through the probe.
+DIST_FUSED_KERNELS = FUSED_KERNELS | PROBE_KERNELS
+DIST_STAGED_KERNELS = STAGED_KERNELS | PROBE_KERNELS
+DIST_STAGED_BITONIC_KERNELS = STAGED_BITONIC_KERNELS | PROBE_KERNELS
 
 
 def dist_cases(n: int, nz: int) -> tuple[dict, list[dict]]:
@@ -2103,7 +2273,7 @@ def dist_cases(n: int, nz: int) -> tuple[dict, list[dict]]:
         {"label": "inner", "inputs": "staged", "kind": "join", "cfg": acfg, "order": False,
          "kernels": DIST_STAGED_KERNELS},
         {"label": "aggregate sum", "inputs": "staged", "kind": "aggregate", "cfg": acfg,
-         "order": True, "kernels": DIST_STAGED_KERNELS},
+         "order": True, "kernels": STAGED_KERNELS},
         {"label": "zipf 1:1", "inputs": "zipf", "kind": "join", "cfg": zcfg, "order": False,
          "heavy": True, "kernels": DIST_FUSED_KERNELS},
         {"label": "zipf inner", "inputs": "zipf_unique", "kind": "join",
@@ -2408,12 +2578,12 @@ LAUNCH_KEYS = {
     "join_scan_forward": {"join_scan_forward"}, "join_scan_backward": {"join_scan_backward"},
     "join_scan_place": {"join_scan_place"},
     "bitonic_sort": {"bitonic_local", "bitonic_strided"}, "radix_tile_sort": {"radix_tile"},
-    "lsd_radix_sort": LSD_KERNELS,
+    "lsd_radix_sort": LSD_KERNELS, "narrow_extremes": PROBE_KERNELS,
 }
 
 # The device names of the kernels in csrc/, as the profiler lists them.
 PORT_KERNEL_NAMES = ("run_sort_kernel", "merge_kernel", "gather_kernel", "gather_rows_kernel",
-                     "join_scan_", "bitonic_pass_kernel", "radix_")
+                     "join_scan_", "bitonic_pass_kernel", "radix_", "narrow_extremes_kernel")
 
 
 def phase_profile() -> None:
@@ -2509,36 +2679,38 @@ def main() -> int:
     errs = phase_adversarial(rng)
     r1, r2, cfg = slice_inputs(10_000_000)
     shapes = phase_main_path_shapes(r1, r2, cfg)
+    probe_rec = phase_probe_shape(r1, r2)
     torch.cuda.empty_cache()
     bitonic = phase_bitonic_shape(rng)
     phase_csv_100k()
     launches, ms10, rows10 = phase_slice(r1, r2, cfg, expect_narrow=True, label="10M",
-                                         kernels_of_path=FUSED_KERNELS)
+                                         kernels_of_path=FUSED_KERNELS | PROBE_KERNELS)
     del r1, r2
     torch.cuda.empty_cache()
     w1, w2, wcfg = slice_inputs(1_000_000, key_offset=2**40)
     phase_slice(w1, w2, wcfg, expect_narrow=False, label="1M wide keys",
-                kernels_of_path=FUSED_WIDE_KERNELS)
+                kernels_of_path=FUSED_WIDE_KERNELS | PROBE_KERNELS)
     a1, a2, acfg = staged_inputs(10_000_000, "auto")
     launches_a, msa, rowsa = phase_slice(a1, a2, acfg, expect_narrow=True, label="staged inner 10M",
-                                kernels_of_path=STAGED_KERNELS)
+                                kernels_of_path=STAGED_KERNELS | PROBE_KERNELS)
     del a1, a2
     torch.cuda.empty_cache()
     b1, b2, bcfg = staged_inputs(2_000_000, "pallas_bitonic")
     launches_b, msb, rowsb = phase_slice(b1, b2, bcfg, expect_narrow=True,
                                          label="staged inner 2M bitonic",
-                                         kernels_of_path=STAGED_BITONIC_KERNELS)
+                                         kernels_of_path=STAGED_BITONIC_KERNELS | PROBE_KERNELS)
     del b1, b2
     r1, r2, cfg = slice_inputs(10_000_000)
     phase_hash_shapes(r1, r2, cfg)
     torch.cuda.empty_cache()
     _, msh, rowsh = phase_slice(r1, r2, hash_config(cfg), expect_narrow=True, label="hash 1:1 10M",
-                                kernels_of_path=HASH_ONE_TO_ONE_KERNELS)
+                                kernels_of_path=HASH_ONE_TO_ONE_KERNELS | PROBE_KERNELS)
     del r1, r2
     torch.cuda.empty_cache()
     a1, a2, acfg = staged_inputs(10_000_000, "auto")
     _, mshi, rowshi = phase_slice(a1, a2, hash_config(acfg), expect_narrow=True,
-                                  label="hash inner 10M", kernels_of_path=HASH_INNER_KERNELS)
+                                  label="hash inner 10M",
+                                  kernels_of_path=HASH_INNER_KERNELS | PROBE_KERNELS)
     check(rowshi == rowsa, f"hash inner 10M: {rowshi} rows, the sort-merge inner join {rowsa}")
     r1, r2, cfg = slice_inputs(10_000_000)
     typed = phase_types(r1, r2, cfg, a1, a2, acfg)
@@ -2631,6 +2803,13 @@ def main() -> int:
                                     and k != "lsd_launches")),
                  lsd["ms"], lsd["head_plain_ms"], lsd, lsd["library_ms"]),
          "plain_n": lsd["head_n"], "head_ms": lsd["head_ms"]},
+        # No Pallas kernel: the JAX package's probe is one jitted XLA
+        # function. The library call finds the values' extremes alone.
+        {**entry("narrow_extremes", "probe.cu", "", launches["narrow_extremes"],
+                 max(errs["probe"], probe_rec["err"]), probe_rec["ms"], probe_rec["plain_ms"],
+                 probe_rec, probe_rec["library_ms"]),
+         "replaces": "pim_sort_merge_join_tpu/engine/pipeline.py:138 "
+                     "QueryPipeline._resolve_narrow_device, probe"},
     ]
     log(f"slice 10M: {rows10} rows in {ms10:.3f} ms; staged inner 10M: {rowsa} rows in "
         f"{msa:.3f} ms; staged inner 2M bitonic: {rowsb} rows in {msb:.3f} ms; hash 1:1 10M: "

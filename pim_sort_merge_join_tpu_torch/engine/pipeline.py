@@ -30,6 +30,7 @@ from pim_sort_merge_join_tpu_torch.ops import filter as filter_ops
 from pim_sort_merge_join_tpu_torch.ops import join as join_ops
 from pim_sort_merge_join_tpu_torch.ops import sort as sort_ops
 from pim_sort_merge_join_tpu_torch.ops.hash_join import hash_join
+from pim_sort_merge_join_tpu_torch.ops.kernels import probe
 from pim_sort_merge_join_tpu_torch.utils import validate
 
 
@@ -91,7 +92,16 @@ def narrow_extremes(d1: torch.Tensor, d2: torch.Tensor, k1: int, k2: int):
     of two tables, padding included (padding zeros keep the range inside
     int32, never push a valid value out): ``lo = [min key, min value]``
     and ``hi = [max key, max value]``, on the tables' device. Order keys,
-    since torch has no ``min`` for uint64."""
+    since torch has no ``min`` for uint64. CPU buffers take
+    `narrow_extremes_plain`; CUDA buffers launch one kernel
+    (`ops/kernels/probe`), which raises on what it does not take."""
+    if d1.device.type == "cpu" and d2.device.type == "cpu":
+        return narrow_extremes_plain(d1, d2, k1, k2)
+    return probe.narrow_extremes_cuda(d1, d2, k1, k2)
+
+
+def narrow_extremes_plain(d1: torch.Tensor, d2: torch.Tensor, k1: int, k2: int):
+    """`narrow_extremes` as torch reductions, on any device and any type."""
     ok1, ok2 = dtypes.order_key(d1), dtypes.order_key(d2)
     lo = torch.stack([torch.minimum(ok1[:, k1].min(), ok2[:, k2].min()),
                       torch.minimum(ok1.min(), ok2.min())])

@@ -6,11 +6,13 @@ from pim_sort_merge_join_tpu_torch.ops.kernels import (
     gather,
     hbm_sort,
     join_scan,
+    probe,
     radix_sort,
 )
 
 _COUNTERS = (
     hbm_sort.LAUNCHES, gather.LAUNCHES, join_scan.LAUNCHES, bitonic_sort.LAUNCHES, radix_sort.LAUNCHES,
+    probe.LAUNCHES,
 )
 
 

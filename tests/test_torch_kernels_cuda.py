@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+
 pytestmark = pytest.mark.cuda
 
 
@@ -490,6 +492,73 @@ def test_radix_runs_merge_into_the_hbm_sort_permutation(cuda):
         assert torch.equal(g, w)
 
 
+def test_narrow_extremes_kernel_matches_plain(cuda):
+    """The narrow probe's kernel against its plain version, exactly, on the
+    adversarial cases (`chip_smoke.probe_cases`: int64 and uint64 with
+    values from 2^63 on, INT64_MIN/MAX and the int32 window's edges, rows
+    of 1, 3, 4 and 7 with key columns that differ between the tables, odd
+    and unequal sizes, tables across many blocks) in every layout of
+    `chip_smoke.probe_views`: one launch a call, each on the scratch the
+    launch before it left."""
+    cases = chip_smoke.probe_cases(np.random.default_rng(81))
+    assert {c[1].shape[1] for c in cases} == {1, 3, 4, 7}
+    assert any(c[1].dtype == np.uint64 for c in cases)
+    for case in cases:
+        assert chip_smoke.probe_err(case) == 0, case[0]
+
+
+def test_narrow_extremes_kernel_repeats_across_many_blocks(cuda):
+    """Tables of 3M and 2M + 1 rows (one wave of blocks, each thread many
+    loads), probed 30 times: each launch finds the ticket the last one
+    left at 0."""
+    from pim_sort_merge_join_tpu_torch.engine.pipeline import narrow_extremes_plain
+    from pim_sort_merge_join_tpu_torch.ops.kernels import probe
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    d1 = torch.randint(-(2**40), 2**40, (3_000_000, 4), generator=g, device=cuda)
+    d2 = torch.randint(-(2**31), 2**31, (2_000_001, 4), generator=g, device=cuda)
+    for k1, k2 in ((0, 0), (3, 1)):
+        want = torch.cat(narrow_extremes_plain(d1, d2, k1, k2))
+        got = [torch.cat(probe.narrow_extremes_cuda(d1, d2, k1, k2)) for _ in range(30)]
+        assert all(torch.equal(x, want) for x in got)
+
+
+@pytest.mark.parametrize("case", chip_smoke.probe_error_cases(), ids=lambda c: c[0])
+def test_narrow_extremes_kernel_raises_the_plain_versions_errors(cuda, case):
+    from pim_sort_merge_join_tpu_torch.ops.kernels import probe
+
+    before = probe.LAUNCHES["narrow_extremes"]
+    got, want = chip_smoke.probe_error(case, cuda), chip_smoke.probe_error(case, "cpu")
+    assert got == want
+    assert probe.LAUNCHES["narrow_extremes"] == before + (want is None)
+
+
+@pytest.mark.parametrize("run", ["auto", "given", "int32"])
+def test_probe_stage_launches_on_card(cuda, run):
+    """The ``probe`` stage launches the kernel once where a narrow flag is
+    "auto" on int64 tables, and nothing where both are given or the type
+    cannot narrow."""
+    import dataclasses
+    import json
+
+    from pim_sort_merge_join_tpu_torch import QueryPipeline, Table
+
+    r1, r2, cfg = chip_smoke.slice_inputs(30_000)
+    dtype = torch.int32 if run == "int32" else torch.int64
+    if run == "given":
+        cfg = dataclasses.replace(cfg, narrow_keys=True, narrow_data=False)
+    if run == "int32":
+        cfg = dataclasses.replace(cfg, dtype="int32")
+    pipe = QueryPipeline(cfg, device=cuda)
+    out = pipe.run_tables(Table.from_numpy(r1, device=cuda, dtype=dtype),
+                          Table.from_numpy(r2, device=cuda, dtype=dtype))
+    (execute,) = json.loads(pipe.metrics_json())["stages"]
+    probe_stage = execute["stages"][0]
+    assert probe_stage["stage"] == "probe"
+    assert probe_stage["launches"] == (run == "auto")
+    assert int(out.num_rows) > 0
+
+
 @pytest.mark.parametrize("key_offset", [0, 2**40])
 def test_pipeline_on_card_matches_cpu(cuda, key_offset):
     import chip_smoke
@@ -504,8 +573,11 @@ def test_pipeline_on_card_matches_cpu(cuda, key_offset):
     counts = kernels.launch_counts()
     ran = {name for name, n in counts.items() if n > 0}
     # Narrow keys: every sort carries its operands in the element or moves
-    # rows; 64-bit keys: the merge sort gathers its two operands.
-    assert ran == (chip_smoke.FUSED_WIDE_KERNELS if key_offset else chip_smoke.FUSED_KERNELS)
+    # rows; 64-bit keys: the merge sort gathers its two operands. The
+    # "auto" narrow keys: one probe launch.
+    assert ran == (chip_smoke.FUSED_WIDE_KERNELS if key_offset
+                   else chip_smoke.FUSED_KERNELS) | chip_smoke.PROBE_KERNELS
+    assert counts["narrow_extremes"] == 1
     # One sort, the merge; the placement and one row gather in its place
     # of the un-merge and emit sorts.
     assert counts["hbm_sort_chunk"] == 1
@@ -534,7 +606,7 @@ def test_staged_pipeline_on_card_matches_cpu(cuda, sort_algorithm):
     want_ran = chip_smoke.STAGED_KERNELS
     if sort_algorithm == "pallas_bitonic":
         want_ran = chip_smoke.STAGED_BITONIC_KERNELS
-    assert ran == want_ran
+    assert ran == want_ran | chip_smoke.PROBE_KERNELS
     assert counts["gather_rows"] == 3  # two table sorts and the join's emit
     want = QueryPipeline(cfg, device="cpu").run_tables(
         Table.from_numpy(r1, device="cpu"), Table.from_numpy(r2, device="cpu")
@@ -653,10 +725,12 @@ def test_hash_join_paths_on_card_match_cpu(cuda, monkeypatch, join_mode, dtype):
     got = QueryPipeline(cfg, device=cuda).run_tables(
         Table.from_numpy(r1, device=cuda, dtype=tdt), Table.from_numpy(r2, device=cuda, dtype=tdt))
     ran = {name for name, n in kernels.launch_counts().items() if n > 0}
+    # Only int64 (and uint64) tables are probed for narrow keys.
+    probe = chip_smoke.PROBE_KERNELS if dtype == "int64" else set()
     if join_mode == "inner":
-        assert ran == chip_smoke.HASH_INNER_KERNELS
+        assert ran == chip_smoke.HASH_INNER_KERNELS | probe
     elif dtype == "int64":
-        assert ran == chip_smoke.HASH_ONE_TO_ONE_KERNELS
+        assert ran == chip_smoke.HASH_ONE_TO_ONE_KERNELS | probe
     else:  # int32 hashes: the merge sort carries both operands in its element
         assert ran == chip_smoke.FUSED_KERNELS
     monkeypatch.undo()
