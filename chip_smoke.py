@@ -320,7 +320,7 @@ def scan_errs(mk, mp, cap1) -> dict[str, int]:
     """Largest difference of each scan kernel from its own plain half, of
     the pair from the whole plain scan, and of the placement from its plain
     version on the scan's slots, on tensors on the card."""
-    from pim_sort_merge_join_tpu_torch.ops.join import _merged_dest_plain
+    from pim_sort_merge_join_tpu_torch.ops.kernels.join_scan import _merged_dest_plain
     from pim_sort_merge_join_tpu_torch.ops.kernels import join_scan as js
 
     want_fw = js.join_scan_forward_plain(mk, mp, cap1)
@@ -680,19 +680,19 @@ def probe_err(case) -> int:
     call, each on the scratch of the one before."""
     import torch
 
-    from pim_sort_merge_join_tpu_torch.engine.pipeline import narrow_extremes_plain
+    from pim_sort_merge_join_tpu_torch.ops import kernels
     from pim_sort_merge_join_tpu_torch.ops.kernels import probe
 
     name, a1, a2, k1, k2 = case
     d1, d2 = (torch.from_numpy(a).cuda() for a in (a1, a2))
-    want = torch.cat(narrow_extremes_plain(d1, d2, k1, k2))
+    want = torch.cat(probe.narrow_extremes_plain(d1, d2, k1, k2))
     v1, v2 = probe_views(d1), probe_views(d2)
     err = 0
     for w1, w2 in zip(v1.values(), list(v2.values())[1:] + list(v2.values())[:1]):
         for a, b in ((w1, w2), (v1["contiguous"], w2), (w1, v2["contiguous"])):
-            before = probe.LAUNCHES["narrow_extremes"]
+            before = kernels.launch_counts()["narrow_extremes"]
             got = torch.cat(probe.narrow_extremes_cuda(a, b, k1, k2))
-            check(probe.LAUNCHES["narrow_extremes"] == before + 1,
+            check(kernels.launch_counts()["narrow_extremes"] == before + 1,
                   f"narrow_extremes case {name}: not one launch")
             err += int((got != want).sum())
     return err
@@ -714,7 +714,7 @@ def probe_error(case, device) -> tuple[str, str] | None:
     an error case, or None where it returns."""
     import torch
 
-    from pim_sort_merge_join_tpu_torch.engine.pipeline import narrow_extremes
+    from pim_sort_merge_join_tpu_torch.ops.kernels.probe import narrow_extremes
 
     _, s1, s2, k1, k2 = case
     d1, d2 = (torch.arange(np.prod(s), dtype=torch.int64, device=device).view(s) for s in (s1, s2))
@@ -908,7 +908,7 @@ def time_scan(rec: dict, prefix: str, mkeys, mpos, cap1: int) -> None:
     """The two scan kernels on one merged input: each against its own plain
     half and the pair against the whole plain scan (exact), their times,
     the plain versions' and the bounds."""
-    from pim_sort_merge_join_tpu_torch.ops.join import _merged_dest_plain
+    from pim_sort_merge_join_tpu_torch.ops.kernels.join_scan import _merged_dest_plain
     from pim_sort_merge_join_tpu_torch.ops.kernels import join_scan as js
 
     n = mkeys.shape[0]
@@ -964,23 +964,24 @@ def phase_probe_shape(r1, r2) -> dict:
     import torch
 
     from pim_sort_merge_join_tpu_torch import Table
-    from pim_sort_merge_join_tpu_torch.engine.pipeline import narrow_extremes_plain
+    from pim_sort_merge_join_tpu_torch.ops import kernels
     from pim_sort_merge_join_tpu_torch.ops.kernels import probe
 
     d1, d2 = Table.from_numpy(r1).data, Table.from_numpy(r2).data
-    want = torch.cat(narrow_extremes_plain(d1, d2, 0, 0))
-    before = probe.LAUNCHES["narrow_extremes"]
+    want = torch.cat(probe.narrow_extremes_plain(d1, d2, 0, 0))
+    before = kernels.launch_counts()["narrow_extremes"]
     err = 0
     for _ in range(20):  # each launch on the scratch the one before left
         err += int((torch.cat(probe.narrow_extremes_cuda(d1, d2, 0, 0)) != want).sum())
     check(err == 0, f"narrow_extremes at the query's shape: {err} values differ from plain")
-    check(probe.LAUNCHES["narrow_extremes"] == before + 20, "narrow_extremes: not one launch a call")
+    check(kernels.launch_counts()["narrow_extremes"] == before + 20,
+          "narrow_extremes: not one launch a call")
     def per_call(fn):
         return time_ms(lambda _: [fn() for _ in range(20)], reps=9) / 20
 
     rec = {"err": err, "shape": [list(d1.shape), list(d2.shape)],
            "ms": per_call(lambda: probe.narrow_extremes_cuda(d1, d2, 0, 0)),
-           "plain_ms": time_ms(lambda _: narrow_extremes_plain(d1, d2, 0, 0)),
+           "plain_ms": time_ms(lambda _: probe.narrow_extremes_plain(d1, d2, 0, 0)),
            "library_ms": per_call(lambda: (torch.aminmax(d1), torch.aminmax(d2))),
            **bound(nbytes(d1, d2))}
     log("narrow probe at the query's shape: " + json.dumps(rec))

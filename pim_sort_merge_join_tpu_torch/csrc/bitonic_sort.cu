@@ -55,21 +55,9 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#ifndef SMJ_BITONIC_LOG_TILE
 #define SMJ_BITONIC_LOG_TILE 13
-#endif
-#ifndef SMJ_BITONIC_LOG_ITEMS
 #define SMJ_BITONIC_LOG_ITEMS 4
-#endif
-#ifndef SMJ_BITONIC_BLOCKS_PER_SM
 #define SMJ_BITONIC_BLOCKS_PER_SM 2
-#endif
-// 1: the substeps on the five lowest tile bits go from lane to lane by warp
-// shuffles; 0: every regrouping goes through shared memory, and the last
-// round leaves a thread with neighbouring elements.
-#ifndef SMJ_BITONIC_SHUFFLE
-#define SMJ_BITONIC_SHUFFLE 1
-#endif
 #define SMJ_BITONIC_LOG_MIN_CHUNK 4
 
 namespace {
@@ -82,7 +70,9 @@ constexpr int THREADS = TILE / ITEMS;
 constexpr size_t SHARED_BYTES = (size_t)(TILE + TILE / ITEMS) * sizeof(uint64_t);
 constexpr uint32_t BIAS32 = 0x80000000u;
 
-constexpr int LANE_BITS = SMJ_BITONIC_SHUFFLE ? 5 : 0;
+// The substeps on the five lowest tile bits go from lane to lane by warp
+// shuffles.
+constexpr int LANE_BITS = 5;
 
 static_assert(LT > SMJ_BITONIC_LOG_MIN_CHUNK && LI >= 1 && LI <= 4 && LT >= 2 * LI &&
                   THREADS <= 1024 && LT >= LI + LANE_BITS,
@@ -213,7 +203,7 @@ bitonic_pass_kernel(const int32_t* __restrict__ keys, const int32_t* __restrict_
         if ((tb < c ? tb : tb - c + lo) == s) down = index_bit_mask(q);
       }
       round_substeps<LI - 1>(r, down, p, hi, low);
-      if (LANE_BITS > 0 && p == LANE_BITS) {
+      if (p == LANE_BITS) {
         for (int b = hi < LANE_BITS ? hi : LANE_BITS - 1; b >= tile_low; --b) {
           lane_exchange(r, down, b);
         }

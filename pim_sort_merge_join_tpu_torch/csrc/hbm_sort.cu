@@ -62,21 +62,11 @@
 // Elements per thread, and the threads of a run-sort and of a merge block;
 // RUN and TILE follow. Compile-time constants: ops/kernels/hbm_sort.py
 // plans with the same two numbers and refuses a library that differs.
-#ifndef SMJ_ITEMS
 #define SMJ_ITEMS 16
-#endif
-#ifndef SMJ_RUN_THREADS
 #define SMJ_RUN_THREADS 512
-#endif
-#ifndef SMJ_TILE_THREADS
 #define SMJ_TILE_THREADS 256
-#endif
-#ifndef SMJ_RUN_BLOCKS_PER_SM
 #define SMJ_RUN_BLOCKS_PER_SM 2
-#endif
-#ifndef SMJ_TILE_BLOCKS_PER_SM
 #define SMJ_TILE_BLOCKS_PER_SM 4
-#endif
 #define SMJ_RUN (SMJ_RUN_THREADS * SMJ_ITEMS)
 #define SMJ_TILE (SMJ_TILE_THREADS * SMJ_ITEMS)
 #define SMJ_GATHER_THREADS 256

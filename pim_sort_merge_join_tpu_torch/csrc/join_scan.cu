@@ -6,9 +6,9 @@
 //   _backward_kernel -> join_scan_backward_kernel
 // and, with join_scan_place_kernel (its note is above the kernel), the sorts
 // of steps 2 and 3 of the JAX package's ops/join._one_to_one_merged.
-// and computes exactly what ops/join._merged_dest_plain computes. Input: the
-// merge sort's output, keys ascending with side-1 elements (mpos < cap1)
-// before side-2 elements within each equal-key run. Forward: ranks within
+// It computes exactly what ops/kernels/join_scan._merged_dest_plain
+// computes. Input: the merge sort's output, keys ascending with side-1
+// elements (mpos < cap1) before side-2 elements within each equal-key run. Forward: ranks within
 // the run, side-2 matches and their prefix m2cum; a matched side-2 element
 // gets its slot m2cum - 1, a live side-1 element the complement of its
 // candidate slot m2cum + rank, anything else the drop value n. Backward:
@@ -53,29 +53,17 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#ifndef JS_THREADS
 #define JS_THREADS 512
-#endif
-#ifndef JS_ITEMS
 #define JS_ITEMS 8
-#endif
 // Resident threads per SM the compiler must leave registers for. On an
 // H100 the forward pass ran best at 3 blocks of 512 threads (40 registers a
 // thread; at 32 it spills), the backward pass at 4 blocks (32 registers).
-#ifndef JS_FORWARD_THREADS_PER_SM
 #define JS_FORWARD_THREADS_PER_SM 1536
-#endif
-#ifndef JS_BACKWARD_THREADS_PER_SM
 #define JS_BACKWARD_THREADS_PER_SM 2048
-#endif
 // The placement: threads a block, and the most blocks its grid-stride loop
 // takes (about two waves of 132 SMs at 8 resident blocks each).
-#ifndef JS_PLACE_THREADS
 #define JS_PLACE_THREADS 256
-#endif
-#ifndef JS_PLACE_MAX_BLOCKS
 #define JS_PLACE_MAX_BLOCKS 2048
-#endif
 #define JS_BLOCKS_PER_SM(threads) ((threads) / JS_THREADS > 0 ? (threads) / JS_THREADS : 1)
 #define JS_BLOCK (JS_THREADS * JS_ITEMS)
 #define JS_WARPS (JS_THREADS / 32)

@@ -3,13 +3,13 @@
 //   out[0] = min(key column k1 of d1, key column k2 of d2),  out[1] = min of every value,
 //   out[2] = max of the same key columns,                    out[3] = max of every value,
 // all as order keys (int64 as it is, uint64 with its sign bit flipped), so
-// that QueryPipeline._resolve_narrow_device decides narrow_keys / narrow_data
+// that engine/pipeline.resolve_narrow decides narrow_keys / narrow_data
 // from one 32-byte readback.
 //
 // Replaces no Pallas kernel. The JAX package's probe (pim_sort_merge_join_tpu/
 // engine/pipeline.py, QueryPipeline._resolve_narrow_device, `probe`) is one
 // jitted function, which XLA fuses into one pass. Its port as torch ops
-// (engine/pipeline.narrow_extremes_plain) launched eight reductions: a row
+// (ops/kernels/probe.narrow_extremes_plain) launched eight reductions: a row
 // of four int64 is one 32-byte sector, so each strided column reduction read
 // as many sectors as a whole-table reduction.
 //
@@ -38,12 +38,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#ifndef PROBE_THREADS
 #define PROBE_THREADS 512
-#endif
-#ifndef PROBE_UNROLL
 #define PROBE_UNROLL 8
-#endif
 // The most blocks a launch takes: `scratch` holds a record for each.
 #define PROBE_MAX_BLOCKS 1024
 #define PROBE_MAX_DEVICES 64

@@ -66,10 +66,6 @@
 // The tile kernel's block shapes: X(largest tile, threads, items per
 // thread), in rising order; a tile takes the first that holds it. Mirrored
 // by TILE_CONFIGS in ops/kernels/radix_sort.py.
-#ifdef SMJ_RADIX_VARIANT_TILE
-#define SMJ_RADIX_CONFIGS(X) \
-  X(SMJ_RADIX_VARIANT_TILE, SMJ_RADIX_VARIANT_THREADS, SMJ_RADIX_VARIANT_ITEMS)
-#else
 #define SMJ_RADIX_CONFIGS(X) \
   X(512, 64, 8)              \
   X(1024, 64, 16)            \
@@ -77,40 +73,20 @@
   X(4096, 256, 16)           \
   X(8192, 512, 16)           \
   X(16384, 1024, 16)
-#endif
 
 // Resident threads per SM the compiler must leave registers for in the
 // tile kernel: 1024 is 64 registers a thread.
-#ifndef SMJ_RADIX_TILE_THREADS_PER_SM
 #define SMJ_RADIX_TILE_THREADS_PER_SM 1024
-#endif
 #define SMJ_RADIX_TILE_BLOCKS_PER_SM(threads) \
   (SMJ_RADIX_TILE_THREADS_PER_SM / (threads) > 0 ? SMJ_RADIX_TILE_THREADS_PER_SM / (threads) : 1)
 
 // The global sort's block: SMJ_LSD_THREADS x SMJ_LSD_ITEMS elements a tile.
-#ifndef SMJ_LSD_THREADS
 #define SMJ_LSD_THREADS 512
-#endif
-#ifndef SMJ_LSD_ITEMS
 #define SMJ_LSD_ITEMS 16
-#endif
-#ifndef SMJ_LSD_BLOCKS_PER_SM
 #define SMJ_LSD_BLOCKS_PER_SM 2
-#endif
 // Kernels are built for a digit width known at compile time, 8 bits, and
-// for any other width read at run time; the variants tool builds the second
-// alone to time what the first gains.
-#ifdef SMJ_RADIX_GENERIC_ONLY
-#define SMJ_RADIX_BITS_OF(digit_bits) 0
-#else
+// for any other width read at run time.
 #define SMJ_RADIX_BITS_OF(digit_bits) ((digit_bits) == 8 ? 8 : 0)
-#endif
-// For the variants tool only, to time a pass's halves apart (the result is
-// then not a sort): 1 leaves the ranking and the look-back out (load,
-// shared memory, store in place), 2 the device-memory loads and stores.
-#ifndef SMJ_LSD_ABLATE
-#define SMJ_LSD_ABLATE 0
-#endif
 #define SMJ_LSD_TILE (SMJ_LSD_THREADS * SMJ_LSD_ITEMS)
 #define SMJ_LSD_HEADER 32  // ints before the histograms: one ticket per pass
 #define SMJ_LSD_HIST_THREADS 256
@@ -166,10 +142,6 @@ __device__ __forceinline__ void rank_tile(const int32_t (&key)[ITEMS], int count
     if (w0 + i * 32 >= count) continue;  // the whole warp is past the end
     const bool valid = w0 + i * 32 + lane < count;
     const int d = digit_of(key[i], shift, v);
-#ifdef SMJ_RADIX_MATCH_ANY
-    // Lanes past the end take a digit no other lane has.
-    unsigned peers = __match_any_sync(FULL, valid ? d : -1 - lane);
-#else
     unsigned peers = __ballot_sync(FULL, valid);
 #pragma unroll
     for (int b = 0; b < bits; ++b) {
@@ -177,7 +149,6 @@ __device__ __forceinline__ void rank_tile(const int32_t (&key)[ITEMS], int count
       // The lanes with this bit as here: the ballot, or its complement.
       peers &= __ballot_sync(FULL, bit) ^ (unsigned)(bit - 1);
     }
-#endif
     const int leader = __ffs(peers) - 1;
     int before = 0;
     if (valid && leader == lane) {
@@ -431,9 +402,7 @@ radix_pass_kernel(PassArgs p) {
     const int e = e0 + i * 32;
     key[i] = 0;
     second[i] = tile0 + e;
-    if (SMJ_LSD_ABLATE == 2) {
-      key[i] = (int32_t)((unsigned)(tile0 + e) * 0x9E3779B1u >> 3);
-    } else if (e < count) {
+    if (e < count) {
       if (p.in_kv != nullptr) {
         const int2 x = __ldg(p.in_kv + tile0 + e);
         key[i] = x.x;
@@ -445,22 +414,6 @@ radix_pass_kernel(PassArgs p) {
     }
   }
 
-  if (SMJ_LSD_ABLATE == 1) {
-#pragma unroll
-    for (int i = 0; i < ITEMS; ++i) {
-      if (e0 + i * 32 < count) elems[(e0 + i * 32) ^ 5] = make_int2(key[i], second[i]);
-    }
-    __syncthreads();
-    for (int e = tid; e < count; e += THREADS) {
-      if (p.out_kv != nullptr) {
-        p.out_kv[tile0 + e] = elems[e];
-      } else {
-        p.out_k[tile0 + e] = elems[e].x;
-        if (p.out_v != nullptr) p.out_v[tile0 + e] = elems[e].y;
-      }
-    }
-    return;
-  }
   unsigned rk[(ITEMS + 1) / 2];
   rank_tile<THREADS, ITEMS, BITS>(key, count, p.shift, p.bits, wc, tot, base, rk);
 
@@ -491,7 +444,6 @@ radix_pass_kernel(PassArgs p) {
   for (int e = tid; e < count; e += THREADS) {
     const int2 x = elems[e];
     const int dest = first_out[digit_of(x.x, p.shift, v)] + e;
-    if (SMJ_LSD_ABLATE == 2 && (x.x != 0x7ffffff1 || x.y != 0x12345)) continue;  // never stores
     if (p.out_kv != nullptr) {
       p.out_kv[dest] = x;
     } else {

@@ -44,7 +44,7 @@ from pim_sort_merge_join_tpu_torch.engine.checkpoint import StageCheckpointer, c
 from pim_sort_merge_join_tpu_torch.engine.errors import ExchangeOverflowError, JoinOverflowError
 from pim_sort_merge_join_tpu_torch.engine.logging import log_event
 from pim_sort_merge_join_tpu_torch.engine.metrics import MetricsCollector
-from pim_sort_merge_join_tpu_torch.engine.pipeline import narrow_extremes, narrow_fits
+from pim_sort_merge_join_tpu_torch.engine.pipeline import resolve_narrow
 from pim_sort_merge_join_tpu_torch.exchange import collectives, skew
 from pim_sort_merge_join_tpu_torch.exchange.partition import (
     choose_splitters,
@@ -363,26 +363,16 @@ class DistributedQueryPipeline:
         shard_cap = max(t.capacity for t in tables)
         return _round128(int(shard_cap * self.config.exchange_slack))
 
-    def _resolve_narrow_device(self, t1: ShardedTable, t2: ShardedTable) -> tuple[bool, bool]:
-        """narrow_keys/narrow_data="auto" from every rank's raw buffers: a
-        global MIN/MAX of `narrow_extremes`, so every rank resolves the same
-        (a collective). Padding zeros can only keep the range inside int32."""
-        if not self.config.narrowable():
-            return False, False
-        lo, hi = narrow_extremes(t1.data, t2.data, self.config.join_key1, self.config.join_key2)
-        lo = collectives.all_reduce(lo, "min", self.group)
-        hi = collectives.all_reduce(hi, "max", self.group)
-        return narrow_fits(lo, hi, t1.dtype)
-
     def _resolved_config(self, t1: ShardedTable, t2: ShardedTable) -> EngineConfig:
-        need_probe = "auto" in (self.config.narrow_keys, self.config.narrow_data)
-        probed = self._resolve_narrow_device(t1, t2) if need_probe else (False, False)
-        narrow = self.config.narrow_keys if self.config.narrow_keys != "auto" else probed[0]
-        narrow_data = self.config.narrow_data if self.config.narrow_data != "auto" else probed[1]
-        self.resolved_narrow_keys = bool(narrow)
-        self.resolved_narrow_data = bool(narrow_data)
-        return dataclasses.replace(self.config, narrow_keys=bool(narrow),
-                                   narrow_data=bool(narrow_data))
+        """`resolve_narrow` over every rank's raw buffers: the global
+        MIN/MAX of `narrow_extremes`, so every rank resolves the same (a
+        collective). Padding zeros can only keep the range inside int32."""
+        cfg = resolve_narrow(self.config, t1, t2, reduce=lambda lo, hi: (
+            collectives.all_reduce(lo, "min", self.group),
+            collectives.all_reduce(hi, "max", self.group)))
+        self.resolved_narrow_keys = cfg.narrow_keys
+        self.resolved_narrow_data = cfg.narrow_data
+        return cfg
 
     def run_tables(self, t1: ShardedTable, t2: ShardedTable, *,
                    check_overflow: bool = True) -> ShardedTable:

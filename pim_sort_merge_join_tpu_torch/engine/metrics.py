@@ -12,7 +12,9 @@ active one (`collecting`); the ops below it open stages (`stage`) and add
 counters (`count`, `sync`) to the innermost open stage of the active
 collector, and with none active they record nothing. Every stage also
 counts the kernel launches made while it was open, its children's included
-(``launches``, from `ops/kernels/build.launches`).
+(``launches``, from `ops/kernels/build.launches`); the sorts count their
+``elements`` and ``passes`` through `ops/kernels/build.count`, which hands
+them to this module's `count` (`build.counter`).
 
 While `torch.profiler` records, a stage opens the span ``smj.<name>``, so
 the Chrome trace shows each step of a query on the device ops' clock.
@@ -27,17 +29,15 @@ from __future__ import annotations
 import contextvars
 import dataclasses
 import json
-import sys
 import time
 from typing import Any
 
 import torch
 from torch.autograd import profiler as _autograd_profiler
 
+from pim_sort_merge_join_tpu_torch.ops.kernels import build
+
 SPAN_PREFIX = "smj."
-# Where the kernel wrappers count every launch (``launches``); no kernel has
-# run before the module is imported.
-_KERNEL_BUILD = "pim_sort_merge_join_tpu_torch.ops.kernels.build"
 
 # The collector the running query records into, and whether a stage's span
 # is open (so an inner stage opens none).
@@ -92,8 +92,7 @@ class _Stage(StageMetric):
             self.span = None
         if self.collector is not None:
             self.collector._open.append(self)
-            build = sys.modules.get(_KERNEL_BUILD)
-            self.launches0 = 0 if build is None else build.launches
+            self.launches0 = build.launches
         self.t0 = time.perf_counter()
         return self
 
@@ -101,8 +100,7 @@ class _Stage(StageMetric):
         self.wall_s = time.perf_counter() - self.t0
         c = self.collector
         if c is not None:
-            build = sys.modules.get(_KERNEL_BUILD)
-            self.extra["launches"] = (0 if build is None else build.launches) - self.launches0
+            self.extra["launches"] = build.launches - self.launches0
             c._open.pop()
             if c.enabled:
                 (c._open[-1].children if c._open else c.stages).append(self)
@@ -173,6 +171,9 @@ def count(**counts: int) -> None:
         extra = c._open[-1].extra
         for k, v in counts.items():
             extra[k] = extra.get(k, 0) + v
+
+
+build.counter = count
 
 
 class _Sync:

@@ -30,7 +30,7 @@ from pim_sort_merge_join_tpu_torch.ops import filter as filter_ops
 from pim_sort_merge_join_tpu_torch.ops import join as join_ops
 from pim_sort_merge_join_tpu_torch.ops import sort as sort_ops
 from pim_sort_merge_join_tpu_torch.ops.hash_join import hash_join
-from pim_sort_merge_join_tpu_torch.ops.kernels import probe
+from pim_sort_merge_join_tpu_torch.ops.kernels.probe import narrow_extremes
 from pim_sort_merge_join_tpu_torch.utils import validate
 
 
@@ -87,29 +87,6 @@ def pipeline_core(t1: Table, t2: Table, config: EngineConfig) -> Table:
         )
 
 
-def narrow_extremes(d1: torch.Tensor, d2: torch.Tensor, k1: int, k2: int):
-    """The order-key extremes the narrow probe reads, over the raw buffers
-    of two tables, padding included (padding zeros keep the range inside
-    int32, never push a valid value out): ``lo = [min key, min value]``
-    and ``hi = [max key, max value]``, on the tables' device. Order keys,
-    since torch has no ``min`` for uint64. CPU buffers take
-    `narrow_extremes_plain`; CUDA buffers launch one kernel
-    (`ops/kernels/probe`), which raises on what it does not take."""
-    if d1.device.type == "cpu" and d2.device.type == "cpu":
-        return narrow_extremes_plain(d1, d2, k1, k2)
-    return probe.narrow_extremes_cuda(d1, d2, k1, k2)
-
-
-def narrow_extremes_plain(d1: torch.Tensor, d2: torch.Tensor, k1: int, k2: int):
-    """`narrow_extremes` as torch reductions, on any device and any type."""
-    ok1, ok2 = dtypes.order_key(d1), dtypes.order_key(d2)
-    lo = torch.stack([torch.minimum(ok1[:, k1].min(), ok2[:, k2].min()),
-                      torch.minimum(ok1.min(), ok2.min())])
-    hi = torch.stack([torch.maximum(ok1[:, k1].max(), ok2[:, k2].max()),
-                      torch.maximum(ok1.max(), ok2.max())])
-    return lo, hi
-
-
 def narrow_fits(lo: torch.Tensor, hi: torch.Tensor, dtype: torch.dtype) -> tuple[bool, bool]:
     """``(keys fit int32, every value fits int32)`` from `narrow_extremes`."""
     # The order key of a uint64 value v is v - 2^63.
@@ -120,6 +97,35 @@ def narrow_fits(lo: torch.Tensor, hi: torch.Tensor, dtype: torch.dtype) -> tuple
     klo, dlo, khi, dhi = (v + shift for v in values)
     info = np.iinfo(np.int32)
     return bool(klo >= info.min and khi < info.max), bool(dlo >= info.min and dhi < info.max)
+
+
+def resolve_narrow(
+    config: EngineConfig,
+    t1,
+    t2,
+    narrow: bool | None = None,
+    narrow_data: bool | None = None,
+    reduce=None,
+) -> EngineConfig:
+    """``config`` with narrow_keys / narrow_data concrete: ``narrow`` /
+    ``narrow_data`` where given, else the configuration's, whose "auto"
+    reads the tables' buffers (`narrow_extremes`, one readback in
+    `narrow_fits`). ``reduce(lo, hi)`` combines the extremes of every rank
+    (`DistributedQueryPipeline`). "auto" resolves to False, with no probe,
+    unless both the configuration's type and the tables' are int64 or
+    uint64: `one_to_one_keys` narrows no other type."""
+    narrow = config.narrow_keys if narrow is None else narrow
+    narrow_data = config.narrow_data if narrow_data is None else narrow_data
+    if "auto" in (narrow, narrow_data):
+        fits = (False, False)
+        if config.narrowable() and {t1.dtype, t2.dtype} <= {torch.int64, torch.uint64}:
+            lo, hi = narrow_extremes(t1.data, t2.data, config.join_key1, config.join_key2)
+            if reduce is not None:
+                lo, hi = reduce(lo, hi)
+            fits = narrow_fits(lo, hi, t1.dtype)
+        narrow = fits[0] if narrow == "auto" else narrow
+        narrow_data = fits[1] if narrow_data == "auto" else narrow_data
+    return dataclasses.replace(config, narrow_keys=bool(narrow), narrow_data=bool(narrow_data))
 
 
 def _resolve_device(device: str | torch.device | None) -> torch.device:
@@ -147,15 +153,6 @@ class QueryPipeline:
         # run; None until a query resolves them.
         self.resolved_narrow_keys: bool | None = None
         self.resolved_narrow_data: bool | None = None
-
-    def _resolve_narrow_device(self, t1: Table, t2: Table) -> tuple[bool, bool]:
-        """Resolve narrow_keys/narrow_data="auto" from the device tables
-        (`narrow_extremes`, one readback). Returns (keys_fit,
-        all_data_fits); (False, False) for a type that cannot narrow."""
-        if not self.config.narrowable():
-            return False, False
-        lo, hi = narrow_extremes(t1.data, t2.data, self.config.join_key1, self.config.join_key2)
-        return narrow_fits(lo, hi, t1.dtype)
 
     def _check_devices(self, *tables: Table) -> None:
         for t in tables:
@@ -187,35 +184,6 @@ class QueryPipeline:
             predicate2=cfg.predicate2.describe(),
         )
 
-    def _resolve_narrow(
-        self, t1: Table, t2: Table, narrow: bool | None, narrow_data: bool | None
-    ) -> EngineConfig:
-        """The configuration with narrow_keys / narrow_data concrete: the
-        arguments where given, else the configuration's, its "auto" from
-        the device probe."""
-        if narrow is None or narrow_data is None:
-            need_probe = (narrow is None and self.config.narrow_keys == "auto") or (
-                narrow_data is None and self.config.narrow_data == "auto"
-            )
-            probed = self._resolve_narrow_device(t1, t2) if need_probe else (False, False)
-            if narrow is None:
-                narrow = (
-                    self.config.narrow_keys
-                    if self.config.narrow_keys != "auto"
-                    else probed[0]
-                )
-            if narrow_data is None:
-                narrow_data = (
-                    self.config.narrow_data
-                    if self.config.narrow_data != "auto"
-                    else probed[1]
-                )
-        self.resolved_narrow_keys = bool(narrow)
-        self.resolved_narrow_data = bool(narrow_data)
-        return dataclasses.replace(
-            self.config, narrow_keys=bool(narrow), narrow_data=bool(narrow_data)
-        )
-
     def run_tables(
         self,
         t1: Table,
@@ -230,7 +198,9 @@ class QueryPipeline:
         # "auto"), pipeline_core's steps, the row count's ``readback``.
         with metrics.collecting(self.metrics), self.metrics.stage("execute", span=False) as m:
             with metrics.stage("probe"):
-                cfg = self._resolve_narrow(t1, t2, narrow, narrow_data)
+                cfg = resolve_narrow(self.config, t1, t2, narrow, narrow_data)
+            self.resolved_narrow_keys = cfg.narrow_keys
+            self.resolved_narrow_data = cfg.narrow_data
             if self.config.debug_log:
                 self._debug_filter_counts(t1, t2)
             result = pipeline_core(t1, t2, cfg)

@@ -13,7 +13,7 @@ and destinations for every type. `torch.sort` and `torch.searchsorted`
 stand where the reference has `jnp.sort` and `jnp.searchsorted` (plain XLA
 there too). Where the reference's float order differs (NaN sorts after
 +inf there and counts as a valid sample), the order key's holds: NaN is
-the sentinel (ROADMAP §3).
+the sentinel, and so no valid sample.
 """
 
 from __future__ import annotations

@@ -225,7 +225,8 @@ def hash_aggregate(table: Table, key: int, value: int, agg: str = "sum") -> Tabl
     CPU tensors). Groups are emitted in key order with
     the unused slots after every group; the reference gives those slots
     the type's largest finite value as key, so its groups of +inf and NaN
-    keys sort behind them and fall off the table (ROADMAP §3).
+    keys sort behind them and fall off the table; here the unused slots
+    take the order sentinel and those groups stay.
     """
     if agg not in _AGGS:
         raise ValueError(f"agg must be one of {_AGGS}, got {agg!r}")

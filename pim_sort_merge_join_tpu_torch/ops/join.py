@@ -39,7 +39,7 @@ from typing import NamedTuple
 import torch
 
 from pim_sort_merge_join_tpu_torch.columnar import dtypes
-from pim_sort_merge_join_tpu_torch.columnar.table import Table, key_sentinel
+from pim_sort_merge_join_tpu_torch.columnar.table import Table
 from pim_sort_merge_join_tpu_torch.engine import metrics
 from pim_sort_merge_join_tpu_torch.ops.kernels import join_scan
 from pim_sort_merge_join_tpu_torch.ops.kernels.gather import gather_rows
@@ -112,7 +112,7 @@ def _run_starts(keys: torch.Tensor) -> torch.Tensor:
     iota = torch.arange(n, dtype=torch.int32, device=keys.device)
     one = torch.ones(1, dtype=torch.bool, device=keys.device)
     head = torch.cat([one, keys[1:] != keys[:-1]])
-    return _head_broadcast(head, iota)
+    return join_scan.head_broadcast(head, iota)
 
 
 def _match_info(t1: Table, t2: Table, key1: int, key2: int) -> _MatchInfo:
@@ -126,56 +126,21 @@ def _match_info_keys(k1: torch.Tensor, k2: torch.Tensor) -> _MatchInfo:
     keys (`columnar/dtypes.order_key`) or hashes, int32/int64.
 
     One stable merge sort of both key columns, whose permutation is each
-    element's concat position (table 1 first on ties), forward run algebra
-    over the merged keys, and one un-merge sort keyed on the position. Both
-    sorts go through the sort seam (`sort_key_permutation`,
+    element's concat position (table 1 first on ties), the merged keys'
+    runs (`join_scan.merged_runs`), and one un-merge sort keyed on the
+    position. Both sorts go through the sort seam (`sort_key_permutation`,
     `stable_key_sort`), so on CUDA tensors they run the `hbm_sort` kernels.
     """
-    cap1, cap2 = k1.shape[0], k2.shape[0]
-    n = cap1 + cap2
-    dev = k1.device
+    cap1 = k1.shape[0]
     mkeys, mpos = sort_key_permutation(torch.cat([k1, k2]))
-    is2 = (mpos >= cap1).to(torch.int32)
-    one = torch.ones(1, dtype=torch.bool, device=dev)
-    neq = mkeys[1:] != mkeys[:-1]
-    head = torch.cat([one, neq])
-    tail = torch.cat([neq, one])
-    iota = torch.arange(n, dtype=torch.int32, device=dev)
-    c2 = torch.cumsum(is2, 0, dtype=torch.int32)
-    run_start = _head_broadcast(head, iota)
-    base2 = _head_broadcast(head, c2 - is2)
-    end2 = _tail_broadcast(head, tail, c2)
-    live = mkeys != key_sentinel(mkeys.dtype)
+    r = join_scan.merged_runs(mkeys, mpos, cap1)
     # Per side-1 element: its key's run in k2 starts at the count of
     # side-2 before its run (base2) and has end2 - base2 members; a side-1
     # element's in-run index is its side rank (side 1 precedes side 2).
-    cnt2_m = torch.where(live, end2 - base2, 0)
-    occ_m = iota - run_start
-    _, lo2, cnt2, occ = stable_key_sort((mpos, base2, cnt2_m, occ_m), unique_keys=True)
+    cnt2_m = torch.where(r.live, r.end2() - r.base2, 0)
+    occ_m = r.iota - r.run_start
+    _, lo2, cnt2, occ = stable_key_sort((mpos, r.base2, cnt2_m, occ_m), unique_keys=True)
     return _MatchInfo(lo2=lo2[:cap1], cnt2=cnt2[:cap1], occ=occ[:cap1])
-
-
-# The run broadcasts below replace the reference's running max / reverse
-# running min (``lax.cummax``/``cummin``), which equal them where ``vals``
-# is non-decreasing, as at every call here. An element's run id is the
-# count of run heads up to it, minus one; a gather of the heads' (tails')
-# values by run id is exact for any ``vals``. On an H100 torch's CUDA
-# ``cummax`` takes 54.7 ms over 20M int32 elements and this form 0.65 ms
-# (PERF.md, "Where the time goes"). ``head[0]`` must be set.
-
-
-def _head_broadcast(head: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """Broadcast each run head's value over its run."""
-    if vals.shape[0] == 0:
-        return vals
-    return vals[head][torch.cumsum(head, 0) - 1]
-
-
-def _tail_broadcast(head: torch.Tensor, tail: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """Broadcast each run tail's value back over its run."""
-    if vals.shape[0] == 0:
-        return vals
-    return vals[tail][torch.cumsum(head, 0) - 1]
 
 
 def _narrow32(k: torch.Tensor) -> torch.Tensor:
@@ -188,42 +153,10 @@ def _narrow32(k: torch.Tensor) -> torch.Tensor:
     return narrow32(k, torch.int64)
 
 
-def _merged_dest_plain(mkeys: torch.Tensor, mpos: torch.Tensor, cap1: int):
-    """Output slot per merged element, as plain torch scans (any device).
-
-    Line-for-line port of the JAX `_merged_dest_xla`. Within an equal-key
-    run every side-1 element precedes every side-2 element, so side-2
-    matches and the witness prefix are forward scans; the side-1 match test
-    needs its run's side-2 total, one backward broadcast. Returns
-    ``(dest int32 [n], num_out int32 0-d)``; dropped elements get ``n``.
-    """
-    n = mkeys.shape[0]
-    dev = mkeys.device
-    is2 = (mpos >= cap1).to(torch.int32)
-    one = torch.ones(1, dtype=torch.bool, device=dev)
-    neq = mkeys[1:] != mkeys[:-1]
-    head = torch.cat([one, neq])
-    tail = torch.cat([neq, one])
-    iota = torch.arange(n, dtype=torch.int32, device=dev)
-    c2 = torch.cumsum(is2, 0, dtype=torch.int32)
-    run_start = _head_broadcast(head, iota)
-    base2 = _head_broadcast(head, c2 - is2)
-    jr = iota - run_start
-    s2r = c2 - base2
-    rank = torch.where(is2 == 1, s2r - 1, jr)
-    live = mkeys != key_sentinel(mkeys.dtype)
-    matched2 = (is2 == 1) & (rank < (jr + 1 - s2r)) & live
-    m2cum = torch.cumsum(matched2.to(torch.int32), 0, dtype=torch.int32)
-    end2 = _tail_broadcast(head, tail, c2)
-    matched1 = (is2 == 0) & (rank < (end2 - base2)) & live
-    dest = torch.where(matched2, m2cum - 1, torch.where(matched1, m2cum + rank, n))
-    num_out = matched2.sum(dtype=torch.int32)
-    return dest, num_out
-
-
 def _merged_dest(mkeys: torch.Tensor, mpos: torch.Tensor, cap1: int):
     """The merged-domain slot computation: the `join_scan` kernels on CUDA
-    tensors at every size and key width, `_merged_dest_plain` on CPU."""
+    tensors at every size and key width, `join_scan._merged_dest_plain` on
+    CPU."""
     return join_scan.join_scan_dest(mkeys, mpos, cap1)
 
 
@@ -390,7 +323,7 @@ def _slot_owners(cnt: torch.Tensor, starts: torch.Tensor, out_cap: int):
 
     def broadcast(vals: torch.Tensor) -> torch.Tensor:
         buf = torch.zeros(out_cap + n, dtype=torch.int32, device=dev)
-        return _head_broadcast(placed, buf.index_copy_(0, slot, vals)[:out_cap])
+        return join_scan.head_broadcast(placed, buf.index_copy_(0, slot, vals)[:out_cap])
 
     j = torch.arange(out_cap, dtype=torch.int32, device=dev)
     return broadcast(i1), j - broadcast(starts)

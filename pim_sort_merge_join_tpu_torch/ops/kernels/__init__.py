@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels of the port, with their plain versions."""
 
+# Each module declares its kernels when imported, so every one has a count.
 from pim_sort_merge_join_tpu_torch.ops.kernels import (
     bitonic_sort,
     build,
@@ -10,19 +11,13 @@ from pim_sort_merge_join_tpu_torch.ops.kernels import (
     radix_sort,
 )
 
-_COUNTERS = (
-    hbm_sort.LAUNCHES, gather.LAUNCHES, join_scan.LAUNCHES, bitonic_sort.LAUNCHES, radix_sort.LAUNCHES,
-    probe.LAUNCHES,
-)
-
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches by the wrappers since the last reset, by kernel."""
-    return {name: n for counts in _COUNTERS for name, n in counts.items()}
+    return dict(build.launch_counts)
 
 
 def reset_launch_counts() -> None:
     build.launches = 0
-    for counts in _COUNTERS:
-        for name in counts:
-            counts[name] = 0
+    for name in build.launch_counts:
+        build.launch_counts[name] = 0

@@ -27,7 +27,6 @@ from typing import NamedTuple
 
 import torch
 
-from pim_sort_merge_join_tpu_torch.engine import metrics
 from pim_sort_merge_join_tpu_torch.ops.kernels import build
 from pim_sort_merge_join_tpu_torch.ops.kernels.hbm_sort import (
     hbm_sort,
@@ -45,33 +44,28 @@ MAX_WIDTH = 1 << 30
 LOG_TILE = 13  # SMJ_BITONIC_LOG_TILE in csrc/bitonic_sort.cu: elements of a tile
 LOG_MIN_CHUNK = 4  # SMJ_BITONIC_LOG_MIN_CHUNK: the shortest contiguous piece of a strided tile
 
-# Kernel launches by this module's wrappers, for showing which path ran.
-LAUNCHES = {"bitonic_local": 0, "bitonic_strided": 0}
-
 _MIN64 = -(2**63)
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
-_fns: dict = {}
 
 
-def _fn(name: str):
-    if name not in _fns:
-        argtypes = {
-            "smj_bitonic_passes": [_P, _P, _P, _P, _P, _I64, _I64, _P, _INT, _INT, _INT, _P],
-        }[name]
-        if not _fns:
-            sizes = tuple(
-                build.c_function(f, [])()
-                for f in ("smj_bitonic_log_tile", "smj_bitonic_log_min_chunk")
-            )
-            if sizes != (LOG_TILE, LOG_MIN_CHUNK):
-                raise RuntimeError(
-                    f"bitonic_sort: the library was built with (LOG_TILE, LOG_MIN_CHUNK) = "
-                    f"{sizes}, this module plans for {(LOG_TILE, LOG_MIN_CHUNK)}"
-                )
-        _fns[name] = build.c_function(name, argtypes)
-    return _fns[name]
+def _check_sizes() -> None:
+    sizes = tuple(
+        build.c_function(f, [])() for f in ("smj_bitonic_log_tile", "smj_bitonic_log_min_chunk")
+    )
+    if sizes != (LOG_TILE, LOG_MIN_CHUNK):
+        raise RuntimeError(
+            f"bitonic_sort: the library was built with (LOG_TILE, LOG_MIN_CHUNK) = "
+            f"{sizes}, this module plans for {(LOG_TILE, LOG_MIN_CHUNK)}"
+        )
+
+
+build.declare(
+    {"smj_bitonic_passes": [_P, _P, _P, _P, _P, _I64, _I64, _P, _INT, _INT, _INT, _P]},
+    ("bitonic_local", "bitonic_strided"),
+    _check_sizes,
+)
 
 
 def _substeps(n: int):
@@ -228,7 +222,7 @@ def launch_passes(
     ``buf`` (int64 ``[width]``). Where ``keys`` is shorter than ``width`` the
     network's other elements are the largest pair, never written out."""
     flat = [x for p in passes for x in (p.first_stage, p.last_stage, p.lo, p.chunk, p.low_bit)]
-    err = _fn("smj_bitonic_passes")(
+    err = build.entry("smj_bitonic_passes")(
         keys.data_ptr(), vals.data_ptr(), buf.data_ptr(), out_k.data_ptr(), out_v.data_ptr(),
         keys.shape[0] if width is None else width, keys.shape[0],
         ctypes.cast((_INT * len(flat))(*flat), _P), len(passes),
@@ -236,8 +230,7 @@ def launch_passes(
     )
     build.check(err, f"bitonic_sort, {len(passes)} passes")
     for p in passes:
-        LAUNCHES["bitonic_strided" if p.strided else "bitonic_local"] += 1
-        build.launches += 1
+        build.launched("bitonic_strided" if p.strided else "bitonic_local")
 
 
 def bitonic_sort_cuda(keys: torch.Tensor, vals: torch.Tensor, width: int | None = None):
@@ -304,7 +297,7 @@ def sort_pairs(keys: torch.Tensor, vals: torch.Tensor):
         )
         return hbm_sort((keys, vals))
     if n:
-        metrics.count(elements=n, passes=len(bitonic_schedule(n2)))
+        build.count(elements=n, passes=len(bitonic_schedule(n2)))
     if devices == {"cuda"}:
         # The kernels pad on the way in and drop the padding on the way out.
         return bitonic_sort_cuda(keys, vals, width=n2) if n else (keys.clone(), vals.clone())

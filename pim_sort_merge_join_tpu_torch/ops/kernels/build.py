@@ -1,4 +1,5 @@
-"""Build the CUDA kernels at first use and load them with ctypes.
+"""Build the CUDA kernels at first use, load them with ctypes, and count
+their launches: the one seam between the kernel modules and their callers.
 
 Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` call, all started
 together, and the objects are linked into one shared library with a plain C
@@ -8,6 +9,13 @@ so a stale build is never loaded; it is written under a temporary name and
 moved into place, so no reader sees a partial file. The check and the
 build hold a lock across processes (`utils/build_lock.py`), so ranks that
 reach first use together build once and the others load that library.
+
+Each kernel module declares its C entry points with their argument types,
+the check that the library was built with the sizes the module plans for,
+and the kernels it launches (`declare`); it calls an entry point through
+`entry` and counts each launch through `launched`. `engine/metrics` reads
+`launches` at each stage, and sets `counter` to its own `count`, which
+receives what the sorts pass to `count`: the elements and passes they take.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+from typing import Callable
 
 import torch
 
@@ -30,16 +39,23 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)  # for one source straight into a library; `build` compiles with -c and links
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+)
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+# Each declared entry point's argument types and its module's check; the
+# entry points looked up; the checks that passed.
+_declared: dict[str, tuple[list, Callable[[], None] | None]] = {}
+_entries: dict[str, ctypes._CFuncPtr] = {}
+_passed: set = set()
 
-# Launches of every kernel since the last `ops/kernels.reset_launch_counts`:
-# each wrapper adds to it beside its own module's ``LAUNCHES``, so that
-# `engine/metrics` reads the total at each stage in one look-up.
+# Launches since the last `ops/kernels.reset_launch_counts`, by kernel,
+# and their total.
+launch_counts: dict[str, int] = {}
 launches = 0
+# Where `count` sends a sort's work; `engine/metrics` sets it.
+counter: Callable[..., None] | None = None
 
 
 def sources() -> list[Path]:
@@ -78,15 +94,14 @@ def build() -> Path:
 
 def _compile(path: Path) -> None:
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
         objects = [os.path.join(objdir, src.stem + ".o") for src in sources()]
-        cmds = [[_nvcc(), *compile_flags, "-c", "-o", obj, str(src)]
+        cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(src)]
                 for src, obj in zip(sources(), objects)]
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
                  for cmd in cmds]
         results = [(cmd, proc.communicate(), proc.returncode) for cmd, proc in zip(cmds, procs)]
-        link = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *objects]
+        link = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *objects]
         if all(rc == 0 for _, _, rc in results):
             linked = subprocess.run(link, capture_output=True, text=True)
             results.append((link, (linked.stdout, linked.stderr), linked.returncode))
@@ -112,6 +127,44 @@ def c_function(name: str, argtypes: list) -> ctypes._CFuncPtr:
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def declare(argtypes: dict[str, list], kernels: tuple[str, ...],
+            check: Callable[[], None] | None = None) -> None:
+    """A kernel module's C entry points (name: argument types), the
+    kernels whose launches it counts, and ``check``, which raises unless the
+    library was built with the sizes the module plans for; it runs before
+    the first of the module's entry points is looked up."""
+    for name, types in argtypes.items():
+        _declared[name] = (types, check)
+    for kernel in kernels:
+        launch_counts.setdefault(kernel, 0)
+
+
+def entry(name: str) -> ctypes._CFuncPtr:
+    """The declared C entry point ``name``, looked up once."""
+    fn = _entries.get(name)
+    if fn is None:
+        argtypes, module_check = _declared[name]
+        if module_check is not None and module_check not in _passed:
+            module_check()
+            _passed.add(module_check)
+        fn = _entries[name] = c_function(name, argtypes)
+    return fn
+
+
+def launched(kernel: str, n: int = 1) -> None:
+    """Count ``n`` launches of ``kernel``."""
+    global launches
+    launch_counts[kernel] += n
+    launches += n
+
+
+def count(**counts: int) -> None:
+    """Count a sort's work (``elements``, ``passes``) through `counter`,
+    which adds it to the innermost open stage of the running query."""
+    if counter is not None:
+        counter(**counts)
 
 
 def check(err: int, what: str) -> None:

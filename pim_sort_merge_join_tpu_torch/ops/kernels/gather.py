@@ -33,32 +33,28 @@ from pim_sort_merge_join_tpu_torch.ops.kernels import build
 MAX_ROW_BYTES = 64  # SMJ_ROWS_MAX_BYTES in csrc/gather.cu: the widest row a launch reads
 MAX_PARTS = 2  # SMJ_ROWS_MAX_PARTS: parts gathered into one output in one launch
 
-# Kernel launches by this module's wrapper, for showing which path ran.
-LAUNCHES = {"gather_rows": 0}
-
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
-_fns: dict = {}
 
 
-def _fn(name: str):
-    if name not in _fns:
-        argtypes = {
-            "smj_gather_rows": [_INT, _P, _P, _P, _P, _P, _P, _P, _INT, _P, _P, _I64, _I64, _P],
-        }[name]
-        if not _fns:
-            built = tuple(
-                build.c_function(f, [])()
-                for f in ("smj_gather_rows_max_bytes", "smj_gather_rows_max_parts")
-            )
-            if built != (MAX_ROW_BYTES, MAX_PARTS):
-                raise RuntimeError(
-                    f"gather_rows: the library was built for (row bytes, parts) = {built}, "
-                    f"this module checks for {(MAX_ROW_BYTES, MAX_PARTS)}"
-                )
-        _fns[name] = build.c_function(name, argtypes)
-    return _fns[name]
+def _check_sizes() -> None:
+    built = tuple(
+        build.c_function(f, [])()
+        for f in ("smj_gather_rows_max_bytes", "smj_gather_rows_max_parts")
+    )
+    if built != (MAX_ROW_BYTES, MAX_PARTS):
+        raise RuntimeError(
+            f"gather_rows: the library was built for (row bytes, parts) = {built}, "
+            f"this module checks for {(MAX_ROW_BYTES, MAX_PARTS)}"
+        )
+
+
+build.declare(
+    {"smj_gather_rows": [_INT, _P, _P, _P, _P, _P, _P, _P, _INT, _P, _P, _I64, _I64, _P]},
+    ("gather_rows",),
+    _check_sizes,
+)
 
 
 def _checked(parts, out, live):
@@ -169,7 +165,7 @@ def gather_rows_cuda(parts, *, out=None, live=None) -> torch.Tensor:
         group = pieces[at:at + MAX_PARTS]
         k = len(group)
         flat_cols = [c for _, _, cols in group for c in cols]
-        err = _fn("smj_gather_rows")(
+        err = build.entry("smj_gather_rows")(
             k,
             ctypes.cast((_P * k)(*(s.data_ptr() for s, _, _ in group)), _P),
             ctypes.cast((_INT * k)(*(s.shape[1] for s, _, _ in group)), _P),
@@ -183,8 +179,7 @@ def gather_rows_cuda(parts, *, out=None, live=None) -> torch.Tensor:
             build.stream_ptr(out),
         )
         build.check(err, "gather_rows")
-        LAUNCHES["gather_rows"] += 1
-        build.launches += 1
+        build.launched("gather_rows")
         col += len(flat_cols)
     return out
 

@@ -26,10 +26,11 @@ the key, then one row gather (`ops/kernels/gather.py`), which reads each
 row once and not once per column.
 
 Signed keys are biased to unsigned order (``x ^ sign bit``). Any other
-combination raises on CUDA tensors (ROADMAP: "Float keys and general
-num_keys=2 on CUDA"). What the element looks like and how many passes a
-length takes are plain functions here (`pack_packed32`, `pack_pair32`,
-`pass_schedule`), which the CPU tests reach.
+combination raises on CUDA tensors: the callers sort order keys
+(`columnar/dtypes.order_key`), which are int32 or int64. What the element
+looks like and how many passes a length takes are plain functions here
+(`pack_packed32`, `pack_pair32`, `pass_schedule`), which the CPU tests
+reach.
 """
 
 from __future__ import annotations
@@ -39,7 +40,6 @@ import functools
 
 import torch
 
-from pim_sort_merge_join_tpu_torch.engine import metrics
 from pim_sort_merge_join_tpu_torch.ops.kernels import build
 from pim_sort_merge_join_tpu_torch.ops.kernels.gather import gather_rows
 
@@ -48,37 +48,35 @@ WIDE_KINDS = (KIND_WIDE_I64, KIND_WIDE_PAIR)
 RUN = 8192  # SMJ_RUN in csrc/hbm_sort.cu: elements per phase-A run
 TILE = 4096  # SMJ_TILE: outputs of one merge block
 
-# Kernel launches by this module's wrappers, for showing which path ran.
-LAUNCHES = {"hbm_sort_chunk": 0, "hbm_sort_merge": 0, "hbm_sort_gather": 0}
-
+_TAKES = ("the kernels take one int32 or int64 key, two int32 keys, or an int64 key "
+          "with arange(n) as its second")
 _MIN64 = -(2**63)
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
-_fns: dict = {}
 
 
-def _fn(name: str):
-    if name not in _fns:
-        argtypes = {
-            "smj_hbm_sort_run_size": [],
-            "smj_hbm_sort_tile_size": [],
-            "smj_chunk_sort": [_P, _P, _INT, _I64, _P, _P, _P],
-            "smj_merge_pass": [_P, _P, _P, _P, _INT, _I64, _I64, _P],
-            "smj_merge_pass_final": [_P, _P, _INT, _I64, _I64, _I64, _P, _P, _INT, _P],
-            "smj_gather": [_P, _P, _INT, _P, _I64, _P],
-        }[name]
-        if not _fns:
-            sizes = tuple(
-                build.c_function(f, [])() for f in ("smj_hbm_sort_run_size", "smj_hbm_sort_tile_size")
-            )
-            if sizes != (RUN, TILE):
-                raise RuntimeError(
-                    f"hbm_sort: the library was built with (RUN, TILE) = {sizes}, "
-                    f"this module plans for {(RUN, TILE)}"
-                )
-        _fns[name] = build.c_function(name, argtypes)
-    return _fns[name]
+def _check_sizes() -> None:
+    sizes = tuple(
+        build.c_function(f, [])() for f in ("smj_hbm_sort_run_size", "smj_hbm_sort_tile_size")
+    )
+    if sizes != (RUN, TILE):
+        raise RuntimeError(
+            f"hbm_sort: the library was built with (RUN, TILE) = {sizes}, "
+            f"this module plans for {(RUN, TILE)}"
+        )
+
+
+build.declare(
+    {
+        "smj_chunk_sort": [_P, _P, _INT, _I64, _P, _P, _P],
+        "smj_merge_pass": [_P, _P, _P, _P, _INT, _I64, _I64, _P],
+        "smj_merge_pass_final": [_P, _P, _INT, _I64, _I64, _I64, _P, _P, _INT, _P],
+        "smj_gather": [_P, _P, _INT, _P, _I64, _P],
+    },
+    ("hbm_sort_chunk", "hbm_sort_merge", "hbm_sort_gather"),
+    _check_sizes,
+)
 
 
 def _ptr(t: torch.Tensor | None):
@@ -117,14 +115,12 @@ def element_kind(operands, num_keys: int) -> int:
             if torch.equal(k1, iota):
                 return KIND_WIDE_I64
             raise ValueError(
-                "hbm_sort: a 2-key sort with an int64 first key needs a second "
-                "key equal to arange(n) (ROADMAP: 'Float keys and general "
-                "num_keys=2 on CUDA')"
+                f"hbm_sort: a 2-key sort with an int64 first key needs a second key equal "
+                f"to arange(n): {_TAKES}"
             )
     raise ValueError(
         f"hbm_sort: no CUDA kernel for num_keys={num_keys} with key dtypes "
-        f"{[o.dtype for o in operands[:num_keys]]} (ROADMAP: 'Float keys and "
-        "general num_keys=2 on CUDA')"
+        f"{[o.dtype for o in operands[:num_keys]]}: {_TAKES}"
     )
 
 
@@ -180,10 +176,10 @@ def _sort_passes(n: int) -> int:
 
 
 def _count_sort(n: int) -> None:
-    """Count a sort of ``n`` elements on the innermost open stage
-    (`engine/metrics`): ``elements`` and `_sort_passes`."""
+    """Count a sort of ``n`` elements (`build.count`): ``elements`` and
+    `_sort_passes`."""
     if n:
-        metrics.count(elements=n, passes=_sort_passes(n))
+        build.count(elements=n, passes=_sort_passes(n))
 
 
 def key_operands(operands, kind: int):
@@ -208,12 +204,11 @@ def chunk_sort(k0: torch.Tensor, k1: torch.Tensor, kind: int):
     idx = None
     if kind in WIDE_KINDS:
         idx = torch.empty(npad, dtype=torch.int32, device=k0.device)
-    err = _fn("smj_chunk_sort")(
+    err = build.entry("smj_chunk_sort")(
         k0.data_ptr(), k1.data_ptr(), kind, n, keys.data_ptr(), _ptr(idx), build.stream_ptr(k0),
     )
     build.check(err, "hbm_sort chunk sort")
-    LAUNCHES["hbm_sort_chunk"] += 1
-    build.launches += 1
+    build.launched("hbm_sort_chunk")
     return keys, idx
 
 
@@ -236,22 +231,20 @@ def merge_passes(keys: torch.Tensor, idx: torch.Tensor | None, kind: int, n: int
     if len(runs) > 1:
         dst = (torch.empty_like(keys), torch.empty_like(idx) if wide else None)
     for run in runs[:-1]:
-        err = _fn("smj_merge_pass")(
+        err = build.entry("smj_merge_pass")(
             _ptr(src[0]), _ptr(src[1]), _ptr(dst[0]), _ptr(dst[1]), int(wide), npad, run, stream,
         )
         build.check(err, "hbm_sort merge pass")
-        LAUNCHES["hbm_sort_merge"] += 1
-        build.launches += 1
+        build.launched("hbm_sort_merge")
         src, dst = dst, src
     first = None if wide else torch.empty(n, dtype=torch.int32, device=dev)
     second = torch.empty(n, dtype=torch.int32, device=dev)
-    err = _fn("smj_merge_pass_final")(
+    err = build.entry("smj_merge_pass_final")(
         _ptr(src[0]), _ptr(src[1]), int(wide), npad, runs[-1], n, _ptr(first), _ptr(second),
         int(kind == KIND_PAIR32), stream,
     )
     build.check(err, "hbm_sort last merge pass")
-    LAUNCHES["hbm_sort_merge"] += 1
-    build.launches += 1
+    build.launched("hbm_sort_merge")
     return first, second
 
 
@@ -276,13 +269,12 @@ def gather(perm: torch.Tensor, operands: tuple[torch.Tensor, ...]) -> tuple[torc
     if perm.shape[0] == 0:
         return outs
     for op, out in zip(operands, outs):
-        err = _fn("smj_gather")(
+        err = build.entry("smj_gather")(
             op.data_ptr(), out.data_ptr(), op.element_size(), perm.data_ptr(), perm.shape[0],
             build.stream_ptr(perm),
         )
         build.check(err, "hbm_sort gather")
-        LAUNCHES["hbm_sort_gather"] += 1
-        build.launches += 1
+        build.launched("hbm_sort_gather")
     return outs
 
 

@@ -4,9 +4,11 @@ Replaces the TPU kernels of `pim_sort_merge_join_tpu/ops/pallas/join_scan.py`
 (`_forward_kernel`, `_backward_kernel`). From the merge sort's outputs
 (``mkeys`` ascending, side 1 first on ties; ``mpos`` the concat position)
 it computes each element's 1:1 output slot, or the drop value ``n``, and
-the output row count; the result equals `ops/join._merged_dest_plain`,
-the plain torch version, exactly. `join_scan_forward_plain` and
+the output row count; the result equals `_merged_dest_plain`, the plain
+torch version, exactly. `join_scan_forward_plain` and
 `join_scan_backward_plain` are that function's two halves, one per kernel.
+All three, and the inner join's `ops/join._match_info_keys`, read the
+merged sequence's equal-key runs from one helper, `merged_runs`.
 
 The TPU carried the scan state from tile to tile in order. CUDA blocks run
 in no order, so `csrc/join_scan.cu` makes each pass a single-pass scan with
@@ -31,31 +33,26 @@ from typing import NamedTuple
 
 import torch
 
+from pim_sort_merge_join_tpu_torch.columnar.dtypes import key_sentinel
 from pim_sort_merge_join_tpu_torch.ops.kernels import build
-
-# Kernel launches by this module's wrappers, for showing which path ran.
-LAUNCHES = {"join_scan_forward": 0, "join_scan_backward": 0, "join_scan_place": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
-_fns: dict = {}
 
-
-def _fn(name: str):
-    if name not in _fns:
-        argtypes = {
-            "smj_join_scan_block_size": [],
-            "smj_join_scan_forward": [_P, ctypes.c_int, _P, _I64, ctypes.c_int, _P, _P, _P, _P],
-            "smj_join_scan_backward": [_P, ctypes.c_int, _P, _P, _I64, _P, _P, _P, _P],
-            "smj_join_scan_place": [_P, _P, _I64, ctypes.c_int, ctypes.c_int, _P, _P, _P],
-        }[name]
-        _fns[name] = build.c_function(name, argtypes)
-    return _fns[name]
+build.declare(
+    {
+        "smj_join_scan_block_size": [],
+        "smj_join_scan_forward": [_P, ctypes.c_int, _P, _I64, ctypes.c_int, _P, _P, _P, _P],
+        "smj_join_scan_backward": [_P, ctypes.c_int, _P, _P, _I64, _P, _P, _P, _P],
+        "smj_join_scan_place": [_P, _P, _I64, ctypes.c_int, ctypes.c_int, _P, _P, _P],
+    },
+    ("join_scan_forward", "join_scan_backward", "join_scan_place"),
+)
 
 
 def block_size() -> int:
     """Elements per CUDA block, compile-time in `csrc/join_scan.cu`."""
-    return _fn("smj_join_scan_block_size")()
+    return build.entry("smj_join_scan_block_size")()
 
 
 def _carry_state(n: int, device, words_per_block: int) -> torch.Tensor:
@@ -81,14 +78,13 @@ def join_scan_forward(mkeys: torch.Tensor, mpos: torch.Tensor, cap1: int):
         )
     cand = torch.empty(n, dtype=torch.int32, device=mkeys.device)
     m2 = torch.empty(n, dtype=torch.int32, device=mkeys.device)
-    err = _fn("smj_join_scan_forward")(
+    err = build.entry("smj_join_scan_forward")(
         mkeys.data_ptr(), mkeys.element_size(), mpos.data_ptr(), n, cap1,
         cand.data_ptr(), m2.data_ptr(), _carry_state(n, mkeys.device, 4).data_ptr(),
         build.stream_ptr(mkeys),
     )
     build.check(err, "join_scan forward")
-    LAUNCHES["join_scan_forward"] += 1
-    build.launches += 1
+    build.launched("join_scan_forward")
     return cand, m2
 
 
@@ -100,14 +96,13 @@ def join_scan_backward(mkeys: torch.Tensor, cand: torch.Tensor, m2: torch.Tensor
         raise ValueError("join_scan: forward outputs must match the keys' length")
     dest = torch.empty(n, dtype=torch.int32, device=mkeys.device)
     num_out = torch.empty((), dtype=torch.int32, device=mkeys.device)
-    err = _fn("smj_join_scan_backward")(
+    err = build.entry("smj_join_scan_backward")(
         mkeys.data_ptr(), mkeys.element_size(), cand.data_ptr(), m2.data_ptr(), n,
         dest.data_ptr(), num_out.data_ptr(), _carry_state(n, mkeys.device, 2).data_ptr(),
         build.stream_ptr(mkeys),
     )
     build.check(err, "join_scan backward")
-    LAUNCHES["join_scan_backward"] += 1
-    build.launches += 1
+    build.launched("join_scan_backward")
     return dest, num_out
 
 
@@ -136,13 +131,12 @@ def place_sources(dest: torch.Tensor, mpos: torch.Tensor, cap1: int, out_rows: i
     src2 = torch.empty(out_rows, dtype=torch.int32, device=dest.device)
     if n == 0:
         return src1, src2
-    err = _fn("smj_join_scan_place")(
+    err = build.entry("smj_join_scan_place")(
         dest.data_ptr(), mpos.data_ptr(), n, cap1, out_rows, src1.data_ptr(), src2.data_ptr(),
         build.stream_ptr(dest),
     )
     build.check(err, "join_scan place")
-    LAUNCHES["join_scan_place"] += 1
-    build.launches += 1
+    build.launched("join_scan_place")
     return src1, src2
 
 
@@ -160,31 +154,107 @@ def place_sources_plain(dest: torch.Tensor, mpos: torch.Tensor, cap1: int, out_r
     return src1, src2
 
 
-def join_scan_forward_plain(mkeys: torch.Tensor, mpos: torch.Tensor, cap1: int):
-    """Kernel 3 as plain torch scans (any device): ``(cand, m2cum)``.
+# The run broadcasts below replace the reference's running max / reverse
+# running min (``lax.cummax``/``cummin``), which equal them where ``vals``
+# is non-decreasing, as at every call here. An element's run id is the
+# count of run heads up to it, minus one; a gather of the heads' (tails')
+# values by run id is exact for any ``vals``. On an H100 torch's CUDA
+# ``cummax`` takes 54.7 ms over 20M int32 elements and this form 0.65 ms
+# (PERF.md, "Where the time goes"). ``head[0]`` must be set.
 
-    The first half of `ops/join._merged_dest_plain`. ``cand`` is the slot
-    ``m2cum - 1`` of a matched side-2 element, the complement of the
-    candidate slot ``m2cum + rank`` of a live side-1 element (whose match
-    test needs its run's side-2 total, the backward pass), else ``n``.
-    """
-    from pim_sort_merge_join_tpu_torch.columnar.table import key_sentinel
-    from pim_sort_merge_join_tpu_torch.ops.join import _head_broadcast
 
+def head_broadcast(head: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """Broadcast each run head's value over its run."""
+    if vals.shape[0] == 0:
+        return vals
+    return vals[head][torch.cumsum(head, 0) - 1]
+
+
+def _tail_broadcast(head: torch.Tensor, tail: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """Broadcast each run tail's value back over its run."""
+    if vals.shape[0] == 0:
+        return vals
+    return vals[tail][torch.cumsum(head, 0) - 1]
+
+
+class Runs(NamedTuple):
+    """The equal-key runs of a merged sequence, per element; within a run
+    every side-1 element precedes every side-2 element."""
+
+    is2: torch.Tensor  # int32: 1 on side 2 (``mpos >= cap1``)
+    head: torch.Tensor  # bool: first of its run
+    tail: torch.Tensor  # bool: last of its run
+    iota: torch.Tensor  # int32: the element's index
+    c2: torch.Tensor  # int32: side-2 elements up to here, this one included
+    run_start: torch.Tensor  # int32: index of the run's first element
+    base2: torch.Tensor  # int32: side-2 elements before the run
+    live: torch.Tensor  # bool: the key is no sentinel
+
+    def end2(self) -> torch.Tensor:
+        """Side-2 elements up to the run's end: the one backward broadcast."""
+        return _tail_broadcast(self.head, self.tail, self.c2)
+
+
+def merged_runs(mkeys: torch.Tensor, mpos: torch.Tensor, cap1: int) -> Runs:
+    """`Runs` of the merged keys ``mkeys`` (ascending, side 1 first on
+    ties) whose concat positions are ``mpos``, as plain torch (any device)."""
     n = mkeys.shape[0]
     dev = mkeys.device
     is2 = (mpos >= cap1).to(torch.int32)
     one = torch.ones(1, dtype=torch.bool, device=dev)
-    head = torch.cat([one, mkeys[1:] != mkeys[:-1]])
+    neq = mkeys[1:] != mkeys[:-1]
+    head = torch.cat([one, neq])
     iota = torch.arange(n, dtype=torch.int32, device=dev)
     c2 = torch.cumsum(is2, 0, dtype=torch.int32)
-    jr = iota - _head_broadcast(head, iota)
-    s2r = c2 - _head_broadcast(head, c2 - is2)
-    rank = torch.where(is2 == 1, s2r - 1, jr)
-    live = mkeys != key_sentinel(mkeys.dtype)
-    matched2 = (is2 == 1) & (rank < (jr + 1 - s2r)) & live
+    return Runs(
+        is2=is2, head=head, tail=torch.cat([neq, one]), iota=iota, c2=c2,
+        run_start=head_broadcast(head, iota), base2=head_broadcast(head, c2 - is2),
+        live=mkeys != key_sentinel(mkeys.dtype),
+    )
+
+
+def _forward_matches(r: Runs):
+    """``(rank, matched2, m2cum)``: each element's rank in its side of the
+    run, whether a side-2 element is matched (its rank is below the run's
+    side-1 count so far), and the running count of matched side-2
+    elements. Both scans are forward."""
+    jr = r.iota - r.run_start
+    s2r = r.c2 - r.base2
+    rank = torch.where(r.is2 == 1, s2r - 1, jr)
+    matched2 = (r.is2 == 1) & (rank < (jr + 1 - s2r)) & r.live
     m2cum = torch.cumsum(matched2.to(torch.int32), 0, dtype=torch.int32)
-    side1 = (is2 == 0) & live
+    return rank, matched2, m2cum
+
+
+def _merged_dest_plain(mkeys: torch.Tensor, mpos: torch.Tensor, cap1: int):
+    """Output slot per merged element, as plain torch scans (any device).
+
+    Line-for-line port of the JAX `_merged_dest_xla`. Side-2 matches and
+    the witness prefix are forward scans; the side-1 match test needs its
+    run's side-2 total, one backward broadcast. Returns ``(dest int32 [n],
+    num_out int32 0-d)``; dropped elements get ``n``.
+    """
+    n = mkeys.shape[0]
+    r = merged_runs(mkeys, mpos, cap1)
+    rank, matched2, m2cum = _forward_matches(r)
+    matched1 = (r.is2 == 0) & (rank < (r.end2() - r.base2)) & r.live
+    dest = torch.where(matched2, m2cum - 1, torch.where(matched1, m2cum + rank, n))
+    num_out = matched2.sum(dtype=torch.int32)
+    return dest, num_out
+
+
+def join_scan_forward_plain(mkeys: torch.Tensor, mpos: torch.Tensor, cap1: int):
+    """Kernel 3 as plain torch scans (any device): ``(cand, m2cum)``.
+
+    The first half of `_merged_dest_plain`. ``cand`` is the slot ``m2cum -
+    1`` of a matched side-2 element, the complement of the candidate slot
+    ``m2cum + rank`` of a live side-1 element (whose match test needs its
+    run's side-2 total, the backward pass), else ``n``.
+    """
+    n = mkeys.shape[0]
+    r = merged_runs(mkeys, mpos, cap1)
+    rank, matched2, m2cum = _forward_matches(r)
+    side1 = (r.is2 == 0) & r.live
     cand = torch.where(matched2, m2cum - 1, torch.where(side1, ~(m2cum + rank), n))
     return cand, m2cum
 
@@ -197,8 +267,6 @@ def join_scan_backward_plain(mkeys: torch.Tensor, cand: torch.Tensor, m2: torch.
     tail-gated ``m2cum``, which is that value because ``m2cum`` never
     falls; here it is one gather per run.
     """
-    from pim_sort_merge_join_tpu_torch.ops.join import _tail_broadcast
-
     n = mkeys.shape[0]
     one = torch.ones(1, dtype=torch.bool, device=mkeys.device)
     neq = mkeys[1:] != mkeys[:-1]
@@ -251,8 +319,6 @@ def combine(a: Summary, b: Summary) -> Summary:
 def _segment_flags(mkeys: torch.Tensor, mpos: torch.Tensor, cap1: int, lo: int, hi: int):
     """(head, live side-1, live side-2) of elements ``lo .. hi-1``; a head
     test reads the key before the segment, as the kernel does."""
-    from pim_sort_merge_join_tpu_torch.columnar.table import key_sentinel
-
     k = mkeys[lo:hi]
     first = torch.tensor([lo == 0 or bool(mkeys[lo] != mkeys[lo - 1])])
     head = torch.cat([first, k[1:] != k[:-1]])
@@ -348,8 +414,6 @@ def join_scan_dest(mkeys: torch.Tensor, mpos: torch.Tensor, cap1: int):
     """(dest, num_out): the kernels for CUDA tensors at every size and key
     width, the plain version for CPU tensors; any other device raises."""
     if mkeys.device.type == "cpu" and mpos.device.type == "cpu":
-        from pim_sort_merge_join_tpu_torch.ops.join import _merged_dest_plain
-
         return _merged_dest_plain(mkeys, mpos, cap1)
     if mkeys.device.type == "cuda":
         return join_scan_cuda(mkeys, mpos, cap1)

@@ -1,14 +1,15 @@
-"""The narrow probe's extremes: a CUDA kernel for Hopper.
+"""The narrow probe's extremes: a CUDA kernel for Hopper, and the plain version.
 
-``narrow_extremes_cuda(d1, d2, k1, k2)`` is `engine/pipeline.narrow_extremes`
-on CUDA buffers: over the raw buffers of two int64 or uint64 tables,
-padding included, ``lo = [min key, min value]`` and ``hi = [max key, max
-value]`` as order keys, the keys being column ``k1`` of ``d1`` and ``k2``
-of ``d2``. Its plain version, `engine/pipeline.narrow_extremes_plain`,
-takes eight torch reductions; `csrc/probe.cu` reads each buffer once in one
-launch (its note says how). The result equals the plain version's exactly,
-errors included: an out-of-range key column raises `IndexError` and an
-empty buffer `RuntimeError`, with torch's messages (`_checked`).
+``narrow_extremes(d1, d2, k1, k2)`` is what the narrow probe reads: over the
+raw buffers of two tables, padding included, ``lo = [min key, min value]``
+and ``hi = [max key, max value]`` as order keys, the keys being column
+``k1`` of ``d1`` and ``k2`` of ``d2``. Its plain version,
+`narrow_extremes_plain`, takes eight torch reductions; on int64 and uint64
+CUDA buffers `narrow_extremes_cuda` reads each buffer once in one launch
+of `csrc/probe.cu` (its note says how). The result equals the plain
+version's exactly, errors included: an out-of-range key column raises
+`IndexError` and an empty buffer `RuntimeError`, with torch's messages
+(`_checked`).
 `narrow_extremes_blocked_plain` walks the kernel's loads thread by thread
 (each 16-byte pair's columns carried from the one before, the odd tail,
 the row-by-row path of other layouts), so the CPU tests reach its index
@@ -21,35 +22,51 @@ import ctypes
 
 import torch
 
+from pim_sort_merge_join_tpu_torch.columnar import dtypes
 from pim_sort_merge_join_tpu_torch.ops.kernels import build
-
-# Kernel launches by this module's wrapper, for showing which path ran.
-LAUNCHES = {"narrow_extremes": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
 _BUF = [_P, _I64, _INT, _I64, _I64, _INT, _INT, _INT]
-_fns: dict = {}
 # The zeroed ticket and block records of each (device, stream): the kernel
 # sets the ticket back to 0, and launches on one stream run one at a time.
 _scratch: dict[tuple[int, int], torch.Tensor] = {}
 
+_KERNEL_TYPES = (torch.int64, torch.uint64)  # what the kernel reads
 
-def _fn(name: str):
-    if name not in _fns:
-        argtypes = {
-            "smj_probe_max_blocks": [],
-            "smj_narrow_extremes": [*_BUF, *_BUF, _P, _P, _P],
-        }[name]
-        _fns[name] = build.c_function(name, argtypes)
-    return _fns[name]
+build.declare(
+    {"smj_probe_max_blocks": [], "smj_narrow_extremes": [*_BUF, *_BUF, _P, _P, _P]},
+    ("narrow_extremes",),
+)
+
+
+def narrow_extremes(d1: torch.Tensor, d2: torch.Tensor, k1: int, k2: int):
+    """``(lo, hi)``, int64 ``[2]`` each on the buffers' device: the
+    order-key extremes of the key columns and of every value (order keys,
+    since torch has no ``min`` for uint64; padding zeros keep the range
+    inside int32, never push a valid value out). CPU buffers take
+    `narrow_extremes_plain`; the rest launch the kernel, which raises on
+    mixed or other devices and on types other than int64 and uint64."""
+    if d1.device.type == "cpu" and d2.device.type == "cpu":
+        return narrow_extremes_plain(d1, d2, k1, k2)
+    return narrow_extremes_cuda(d1, d2, k1, k2)
+
+
+def narrow_extremes_plain(d1: torch.Tensor, d2: torch.Tensor, k1: int, k2: int):
+    """`narrow_extremes` as torch reductions, on any device and any type."""
+    ok1, ok2 = dtypes.order_key(d1), dtypes.order_key(d2)
+    lo = torch.stack([torch.minimum(ok1[:, k1].min(), ok2[:, k2].min()),
+                      torch.minimum(ok1.min(), ok2.min())])
+    hi = torch.stack([torch.maximum(ok1[:, k1].max(), ok2[:, k2].max()),
+                      torch.maximum(ok1.max(), ok2.max())])
+    return lo, hi
 
 
 def _scratch_for(device: torch.device, stream: int) -> torch.Tensor:
     key = (device.index, stream)
     if key not in _scratch:
-        words = 2 + 4 * _fn("smj_probe_max_blocks")()
+        words = 2 + 4 * build.entry("smj_probe_max_blocks")()
         _scratch[key] = torch.zeros(words, dtype=torch.int64, device=device)
     return _scratch[key]
 
@@ -58,7 +75,7 @@ def _checked(d1: torch.Tensor, d2: torch.Tensor, k1: int, k2: int) -> tuple[int,
     """The key columns as torch's ``d[:, k]`` reads them (``-1`` is the
     last); the plain version's error where it raises one, in its order."""
     for d in (d1, d2):
-        if d.dim() != 2 or d.dtype not in (torch.int64, torch.uint64):
+        if d.dim() != 2 or d.dtype not in _KERNEL_TYPES:
             raise ValueError(
                 f"narrow_extremes: buffers must be 2D int64/uint64, got {d.dtype} {tuple(d.shape)}"
             )
@@ -99,13 +116,12 @@ def narrow_extremes_cuda(d1: torch.Tensor, d2: torch.Tensor, k1: int, k2: int):
     k1, k2 = _checked(d1, d2, k1, k2)
     out = torch.empty((2, 2), dtype=torch.int64, device=d1.device)
     stream = build.stream_ptr(d1)
-    err = _fn("smj_narrow_extremes")(
+    err = build.entry("smj_narrow_extremes")(
         *_buf_args(d1, k1), *_buf_args(d2, k2), out.data_ptr(),
         _scratch_for(d1.device, stream).data_ptr(), stream,
     )
     build.check(err, "narrow_extremes")
-    LAUNCHES["narrow_extremes"] += 1
-    build.launches += 1
+    build.launched("narrow_extremes")
     return out[0], out[1]
 
 

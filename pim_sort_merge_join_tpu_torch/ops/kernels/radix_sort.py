@@ -36,9 +36,6 @@ import torch
 
 from pim_sort_merge_join_tpu_torch.ops.kernels import build
 
-# Kernel launches by this module's wrappers, for showing which path ran.
-LAUNCHES = {"radix_tile": 0, "lsd_radix_histogram": 0, "lsd_radix_scan": 0, "lsd_radix_pass": 0}
-
 MAX_OPS = 8  # SMJ_RADIX_MAX_OPS in csrc/radix_sort.cu
 MAX_SMEM = 232448  # SMJ_RADIX_MAX_SMEM: the H100's shared memory per block
 # SMJ_RADIX_CONFIGS: (largest tile, threads, items per thread) of the tile
@@ -60,19 +57,6 @@ LSD_MAX_N = 1 << 30  # a look-back record keeps its status in the top two bits
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
-_fns: dict = {}
-
-
-def _fn(name: str):
-    if name not in _fns:
-        argtypes = {
-            "smj_radix_tile_sort": [_P, _P, _INT, _I64, _INT, _INT, _INT, _P],
-            "smj_lsd_radix_sort": [_P, _P, _P, _P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT, _P],
-        }[name]
-        if not _fns:
-            _check_library()
-        _fns[name] = build.c_function(name, argtypes)
-    return _fns[name]
 
 
 def _check_library() -> None:
@@ -108,6 +92,16 @@ def _check_library() -> None:
             f"radix_sort: the library sizes (a tile's shared memory, the global sort's, its "
             f"state words) as {sizes}, this module as {planned}"
         )
+
+
+build.declare(
+    {
+        "smj_radix_tile_sort": [_P, _P, _INT, _I64, _INT, _INT, _INT, _P],
+        "smj_lsd_radix_sort": [_P, _P, _P, _P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT, _P],
+    },
+    ("radix_tile", "lsd_radix_histogram", "lsd_radix_scan", "lsd_radix_pass"),
+    _check_library,
+)
 
 
 def _num_passes(digit_bits: int, key_bits: int) -> int:
@@ -327,13 +321,12 @@ def radix_tile_sort_cuda(
     k = len(operands)
     srcs = (ctypes.c_void_p * k)(*(op.data_ptr() for op in operands))
     dsts = (ctypes.c_void_p * k)(*(o.data_ptr() for o in outs))
-    err = _fn("smj_radix_tile_sort")(
+    err = build.entry("smj_radix_tile_sort")(
         ctypes.cast(srcs, _P), ctypes.cast(dsts, _P), k, n, tile, digit_bits, npass,
         build.stream_ptr(operands[0]),
     )
     build.check(err, "radix_tile_sort")
-    LAUNCHES["radix_tile"] += 1
-    build.launches += 1
+    build.launched("radix_tile")
     return outs
 
 
@@ -416,19 +409,16 @@ def xla_lsd_radix_sort_cuda(
     tmp = torch.empty((min(npass - 1, 2), n), dtype=torch.int64 if has_val else torch.int32,
                       device=dev)
     state = torch.zeros(lsd_state_words(n, digit_bits, npass), dtype=torch.int32, device=dev)
-    err = _fn("smj_lsd_radix_sort")(
+    err = build.entry("smj_lsd_radix_sort")(
         key.data_ptr(), operands[1].data_ptr() if has_val and not gen_pos else None,
         out_key.data_ptr(), None if out_val is None else out_val.data_ptr(),
         tmp[0].data_ptr() if npass > 1 else None, tmp[1].data_ptr() if npass > 2 else None,
         state.data_ptr(), n, digit_bits, npass, int(has_val), int(gen_pos), build.stream_ptr(key),
     )
     build.check(err, "xla_lsd_radix_sort")
-    LAUNCHES["lsd_radix_histogram"] += 1
-    build.launches += 1
-    LAUNCHES["lsd_radix_scan"] += 1
-    build.launches += 1
-    LAUNCHES["lsd_radix_pass"] += npass
-    build.launches += npass
+    build.launched("lsd_radix_histogram")
+    build.launched("lsd_radix_scan")
+    build.launched("lsd_radix_pass", npass)
     if not has_val:
         return (out_key,)
     if gen_pos:

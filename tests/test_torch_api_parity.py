@@ -10,7 +10,9 @@ reason it exists only for the TPU. Each JAX example has its module in
 the port's `examples` package. Every ``__all__`` of the JAX package's
 ``__init__.py`` files is importable from the port's counterpart, and
 importing the port builds nothing. No file of the port, and not
-`chip_smoke.py`, imports jax or the JAX package.
+`chip_smoke.py`, imports jax or the JAX package, and no module of the
+port's kernel layer (`ops/kernels`) imports the operators or the engine
+above it.
 """
 
 from __future__ import annotations
@@ -214,4 +216,22 @@ def _imports(rel: str) -> list[str]:
 def test_no_jax_import(path):
     bad = [m for m in _imports(path)
            if m.split(".")[0] in ("jax", "jaxlib", JAX)]
+    assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("path", _py_files(f"{PORT}/ops/kernels"))
+def test_kernel_layer_imports_nothing_above_it(path):
+    """The kernel modules meet their callers at `ops/kernels/build` alone:
+    every name they import, at the top or inside a function, lies outside
+    ``ops`` and ``engine`` or inside ``ops.kernels``."""
+    names = []
+    for node in ast.walk(_tree(path)):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            assert node.level == 0, f"{path}: relative import"
+            names += [f"{node.module}.{a.name}" for a in node.names]
+    bad = [n for n in names
+           if (n.startswith(f"{PORT}.ops.") and not n.startswith(f"{PORT}.ops.kernels."))
+           or n.startswith(f"{PORT}.engine.")]
     assert not bad, f"{path} imports {bad}"

@@ -33,6 +33,7 @@ from pim_sort_merge_join_tpu.ops import sort as jsort
 from pim_sort_merge_join_tpu.ops.pallas import sort_kernel as jbitonic
 from pim_sort_merge_join_tpu_torch import EngineConfig, Predicate, QueryPipeline, Table
 from pim_sort_merge_join_tpu_torch.columnar import csv_io, dtypes
+from pim_sort_merge_join_tpu_torch.columnar.generate import generate_table
 from pim_sort_merge_join_tpu_torch.convert import config_from_reference, table_from_reference
 from pim_sort_merge_join_tpu_torch.engine import checkpoint as pckpt
 from pim_sort_merge_join_tpu_torch.engine.errors import MalformedInputError
@@ -186,6 +187,25 @@ def test_run_csv_bytes_match_reference(tmp_path, dtype):
     _assert_same(got, want)
     assert (tmp_path / "p.csv").read_bytes() == (tmp_path / "j.csv").read_bytes()
     assert pipe.resolved_narrow_keys is (dtype in ("int64", "uint64"))
+
+
+@pytest.mark.parametrize("dtype", ["int32", "uint32", "float32", "float64"])
+def test_run_tables_on_tables_of_another_type_match_the_reference(dtype):
+    """`EngineConfig()` (int64, narrow flags "auto") on tables of another
+    type: the rows are the JAX package's. The flags differ and narrow
+    nothing on either side: the JAX package probes the tables, the port
+    resolves "auto" to False unprobed, as its `run_csv` does, since it
+    narrows no type but int64 and uint64."""
+    # Keys above the default predicate's 5000 for most rows.
+    rows = [(generate_table(500, seed=s) + [4800, 0, 0, 0]).astype(dtype) for s in (1, 2)]
+    jpipe = smj.QueryPipeline(smj.EngineConfig())
+    want = jpipe.run_tables(*(smj.Table.from_numpy(r, dtype=r.dtype) for r in rows))
+    pipe = QueryPipeline(EngineConfig(), device="cpu")
+    got = pipe.run_tables(*(Table.from_numpy(r, dtype=r.dtype, device="cpu") for r in rows))
+    _assert_same(got, want)
+    assert int(got.num_rows) > 0
+    assert (pipe.resolved_narrow_keys, pipe.resolved_narrow_data) == (False, False)
+    assert (jpipe.resolved_narrow_keys, jpipe.resolved_narrow_data) == (True, True)
 
 
 # --- the table model and config ----------------------------------------------------------

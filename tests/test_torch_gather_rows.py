@@ -16,6 +16,7 @@ import torch
 
 import chip_smoke
 import pim_sort_merge_join_tpu  # noqa: F401  (switches JAX to 64-bit integers)
+from pim_sort_merge_join_tpu_torch.ops import kernels
 from pim_sort_merge_join_tpu_torch.ops import sort as sort_ops
 from pim_sort_merge_join_tpu_torch.ops.kernels import gather as gr
 from pim_sort_merge_join_tpu_torch.ops.kernels import hbm_sort as hs
@@ -218,7 +219,7 @@ def test_the_kernel_entry_refuses_by_message_before_it_touches_the_card():
     for parts in ([(src, idx)], [(wide, idx)], [(src, idx)] * 3):
         with pytest.raises(ValueError, match="must share one CUDA device"):
             gr.gather_rows_cuda(parts)
-    assert gr.LAUNCHES["gather_rows"] == 0
+    assert kernels.launch_counts()["gather_rows"] == 0
 
 
 def test_sizes_mirror_the_cuda_source():

@@ -16,7 +16,7 @@ import torch
 from pim_sort_merge_join_tpu.ops.join import _merged_dest_xla
 from pim_sort_merge_join_tpu.ops.pallas.join_scan import join_scan_dest
 from pim_sort_merge_join_tpu_torch.ops.join import _merged_dest
-from pim_sort_merge_join_tpu_torch.ops.join import _merged_dest_plain
+from pim_sort_merge_join_tpu_torch.ops.kernels.join_scan import _merged_dest_plain
 
 TILE = 256
 

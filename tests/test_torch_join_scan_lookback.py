@@ -25,7 +25,7 @@ from hypothesis import strategies as st
 
 from pim_sort_merge_join_tpu.ops.join import _merged_dest_xla
 from pim_sort_merge_join_tpu.ops.pallas.join_scan import join_scan_dest
-from pim_sort_merge_join_tpu_torch.ops.join import _merged_dest_plain
+from pim_sort_merge_join_tpu_torch.ops.kernels.join_scan import _merged_dest_plain
 from pim_sort_merge_join_tpu_torch.ops.kernels import join_scan as js
 
 TILE = 256

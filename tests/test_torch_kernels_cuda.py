@@ -79,7 +79,7 @@ def test_default_device_is_the_card(cuda):
 
 def test_join_scan_kernel_matches_plain(cuda):
     import chip_smoke
-    from pim_sort_merge_join_tpu_torch.ops.join import _merged_dest_plain
+    from pim_sort_merge_join_tpu_torch.ops.kernels.join_scan import _merged_dest_plain
     from pim_sort_merge_join_tpu_torch.ops.kernels import join_scan as js
 
     for name, mkeys, mpos, cap1 in chip_smoke.scan_cases(np.random.default_rng(62)):
@@ -141,7 +141,7 @@ def test_join_scan_backward_matches_its_plain_half(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
 def test_join_scan_at_the_block_edges(cuda, dtype):
     import chip_smoke
-    from pim_sort_merge_join_tpu_torch.ops.join import _merged_dest_plain
+    from pim_sort_merge_join_tpu_torch.ops.kernels.join_scan import _merged_dest_plain
     from pim_sort_merge_join_tpu_torch.ops.kernels import join_scan as js
 
     block = js.block_size()
@@ -163,7 +163,7 @@ def test_join_scan_repeats_give_one_answer(cuda):
     """20 runs of a multi-block case, some blocks with no run head: an
     ordering fault in the look-back would show only sometimes."""
     import chip_smoke
-    from pim_sort_merge_join_tpu_torch.ops.join import _merged_dest_plain
+    from pim_sort_merge_join_tpu_torch.ops.kernels.join_scan import _merged_dest_plain
     from pim_sort_merge_join_tpu_torch.ops.kernels import join_scan as js
 
     block = js.block_size()
@@ -187,7 +187,7 @@ def _placed(dest, num_out, mpos, cap1, place):
 
 def test_place_sources_matches_plain(cuda):
     import chip_smoke
-    from pim_sort_merge_join_tpu_torch.ops.join import _merged_dest_plain
+    from pim_sort_merge_join_tpu_torch.ops.kernels.join_scan import _merged_dest_plain
     from pim_sort_merge_join_tpu_torch.ops.kernels import join_scan as js
 
     for name, mkeys, mpos, cap1 in chip_smoke.scan_cases(np.random.default_rng(63)):
@@ -208,7 +208,7 @@ def test_place_sources_at_its_vector_and_block_edges(cuda, n):
     prefix of a merged sequence is one too."""
     import chip_smoke
     from pim_sort_merge_join_tpu_torch.ops import kernels
-    from pim_sort_merge_join_tpu_torch.ops.join import _merged_dest_plain
+    from pim_sort_merge_join_tpu_torch.ops.kernels.join_scan import _merged_dest_plain
     from pim_sort_merge_join_tpu_torch.ops.kernels import join_scan as js
 
     rng = np.random.default_rng(70)
@@ -511,7 +511,7 @@ def test_narrow_extremes_kernel_repeats_across_many_blocks(cuda):
     """Tables of 3M and 2M + 1 rows (one wave of blocks, each thread many
     loads), probed 30 times: each launch finds the ticket the last one
     left at 0."""
-    from pim_sort_merge_join_tpu_torch.engine.pipeline import narrow_extremes_plain
+    from pim_sort_merge_join_tpu_torch.ops.kernels.probe import narrow_extremes_plain
     from pim_sort_merge_join_tpu_torch.ops.kernels import probe
 
     g = torch.Generator(device=cuda).manual_seed(5)
@@ -525,12 +525,12 @@ def test_narrow_extremes_kernel_repeats_across_many_blocks(cuda):
 
 @pytest.mark.parametrize("case", chip_smoke.probe_error_cases(), ids=lambda c: c[0])
 def test_narrow_extremes_kernel_raises_the_plain_versions_errors(cuda, case):
-    from pim_sort_merge_join_tpu_torch.ops.kernels import probe
+    from pim_sort_merge_join_tpu_torch.ops import kernels
 
-    before = probe.LAUNCHES["narrow_extremes"]
+    before = kernels.launch_counts()["narrow_extremes"]
     got, want = chip_smoke.probe_error(case, cuda), chip_smoke.probe_error(case, "cpu")
     assert got == want
-    assert probe.LAUNCHES["narrow_extremes"] == before + (want is None)
+    assert kernels.launch_counts()["narrow_extremes"] == before + (want is None)
 
 
 @pytest.mark.parametrize("run", ["auto", "given", "int32"])
@@ -557,6 +557,46 @@ def test_probe_stage_launches_on_card(cuda, run):
     assert probe_stage["stage"] == "probe"
     assert probe_stage["launches"] == (run == "auto")
     assert int(out.num_rows) > 0
+
+
+@pytest.mark.parametrize("dtype", ["int32", "float64"])
+def test_tables_of_another_type_than_the_config_match_cpu(cuda, dtype):
+    """`EngineConfig()` (int64, narrow flags "auto") on int32 and float64
+    tables, on one device and on one rank of a group: no probe runs, the
+    flags resolve to False, and rows and flags are the CPU path's."""
+    import torch.distributed as dist
+
+    from pim_sort_merge_join_tpu_torch import EngineConfig, QueryPipeline, Table
+    from pim_sort_merge_join_tpu_torch.columnar.generate import generate_table
+    from pim_sort_merge_join_tpu_torch.engine.distributed import (
+        DistributedQueryPipeline,
+        ShardedTable,
+    )
+    from pim_sort_merge_join_tpu_torch.ops import kernels
+
+    # Keys above the default predicate's 5000 for most rows.
+    rows = [(generate_table(500, seed=s) + [4800, 0, 0, 0]).astype(dtype) for s in (1, 2)]
+    tdtype = getattr(torch, dtype)
+    cpu = QueryPipeline(EngineConfig(), device="cpu")
+    want = cpu.run_tables(*(Table.from_numpy(r, dtype=tdtype, device="cpu") for r in rows))
+    flags = (cpu.resolved_narrow_keys, cpu.resolved_narrow_data)
+    assert flags == (False, False)
+    pipe = QueryPipeline(EngineConfig(), device=cuda)
+    kernels.reset_launch_counts()
+    got = pipe.run_tables(*(Table.from_numpy(r, dtype=tdtype, device=cuda) for r in rows))
+    assert kernels.launch_counts()["narrow_extremes"] == 0
+    assert torch.equal(got.data.cpu(), want.data)
+    assert int(got.num_rows) == int(want.num_rows) > 0
+    assert (pipe.resolved_narrow_keys, pipe.resolved_narrow_data) == flags
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        dpipe = DistributedQueryPipeline(EngineConfig(), device=cuda)
+        out = dpipe.run_tables(*(ShardedTable.from_numpy(r, dtype=tdtype, device=cuda)
+                                 for r in rows))
+        np.testing.assert_array_equal(out.to_numpy(), want.to_numpy())
+        assert (dpipe.resolved_narrow_keys, dpipe.resolved_narrow_data) == flags
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("key_offset", [0, 2**40])

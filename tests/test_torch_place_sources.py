@@ -133,7 +133,7 @@ def test_placement_equals_the_unmerge_and_emit_sorts(name, dtype):
     t1, t2, k1, k2 = _inputs(name, dtype)
     cap1 = t1.capacity
     mkeys, mpos = sort_key_permutation(torch.cat([k1, k2]))
-    dest, num_out = join_ops._merged_dest_plain(mkeys, mpos, cap1)
+    dest, num_out = join_scan._merged_dest_plain(mkeys, mpos, cap1)
     want = _sorted_emit(t1, t2, 0, dest, mpos, num_out)
     if name == "no_match" or name.startswith("empty"):
         assert int(num_out) == 0
@@ -151,7 +151,7 @@ def test_placement_fills_each_slot_once_from_its_side():
     t1, t2, k1, k2 = _inputs("duplicates_unequal", np.int64)
     cap1 = t1.capacity
     mkeys, mpos = sort_key_permutation(torch.cat([k1, k2]))
-    dest, num_out = join_ops._merged_dest_plain(mkeys, mpos, cap1)
+    dest, num_out = join_scan._merged_dest_plain(mkeys, mpos, cap1)
     live = int(num_out)
     assert live > 0
     src1, src2 = join_scan.place_sources(dest, mpos, cap1, cap1)

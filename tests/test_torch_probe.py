@@ -1,8 +1,8 @@
-"""The narrow probe (`engine/pipeline.narrow_extremes`), on the CPU.
+"""The narrow probe (`ops/kernels/probe.narrow_extremes`), on the CPU.
 
-CPU buffers take the plain version and launch nothing; anything else goes to
-the kernel's wrapper (`ops/kernels/probe`), which raises where it does not
-launch. The wrapper's checks raise the plain version's errors, and
+CPU buffers take the plain version and launch nothing; anything else goes
+to the kernel's wrapper, which raises where it does not launch. Tables of
+a type the fused path does not narrow resolve "auto" to False unprobed. The wrapper's checks raise the plain version's errors, and
 `narrow_extremes_blocked_plain`, the kernel's loads walked thread by thread,
 equals the plain version over the card's adversarial cases
 (`chip_smoke.probe_cases`) in every layout. The ``probe`` stage counts the
@@ -22,12 +22,10 @@ import chip_smoke
 from pim_sort_merge_join_tpu_torch import EngineConfig, Predicate, QueryPipeline, Table
 from pim_sort_merge_join_tpu_torch.columnar.generate import generate_table
 from pim_sort_merge_join_tpu_torch.engine import pipeline
-from pim_sort_merge_join_tpu_torch.engine.pipeline import (
-    narrow_extremes,
-    narrow_extremes_plain,
-    narrow_fits,
-)
+from pim_sort_merge_join_tpu_torch.engine.pipeline import narrow_fits, resolve_narrow
+from pim_sort_merge_join_tpu_torch.ops import kernels
 from pim_sort_merge_join_tpu_torch.ops.kernels import build, probe
+from pim_sort_merge_join_tpu_torch.ops.kernels.probe import narrow_extremes, narrow_extremes_plain
 
 I32 = np.iinfo(np.int32)
 I64 = np.iinfo(np.int64)
@@ -45,9 +43,9 @@ def test_cpu_takes_the_plain_version_with_no_launch(dtype):
     a1 = rng.integers(I64.min, I64.max, (101, 4), dtype=np.int64).view(dtype)
     a2 = rng.integers(-5, 5, (57, 3), dtype=np.int64).view(dtype)
     d1, d2 = torch.from_numpy(a1), torch.from_numpy(a2)
-    launches, counted = build.launches, dict(probe.LAUNCHES)
+    launches, counted = build.launches, kernels.launch_counts()
     lo, hi = narrow_extremes(d1, d2, 2, 1)
-    assert build.launches == launches and probe.LAUNCHES == counted
+    assert build.launches == launches and kernels.launch_counts() == counted
     want_lo, want_hi = narrow_extremes_plain(d1, d2, 2, 1)
     assert torch.equal(lo, want_lo) and torch.equal(hi, want_hi)
     # The order keys' extremes, from numpy.
@@ -57,13 +55,42 @@ def test_cpu_takes_the_plain_version_with_no_launch(dtype):
     assert lo.tolist() == [keys.min(), values.min()] and hi.tolist() == [keys.max(), values.max()]
 
 
-def test_other_devices_go_to_the_kernel_wrapper():
-    """Only CPU buffers take the plain version: the rest launch or raise."""
-    d = torch.zeros((4, 4), dtype=torch.int64, device="meta")
+@pytest.mark.parametrize("dtype", [torch.int64, torch.uint64])
+def test_other_devices_go_to_the_kernel_wrapper(dtype):
+    """Off the CPU, int64 and uint64 buffers launch or raise."""
+    d = torch.zeros((4, 4), dtype=dtype, device="meta")
     with pytest.raises(ValueError, match="one CUDA device"):
         narrow_extremes(d, d, 0, 0)
     with pytest.raises(ValueError, match="one CUDA device"):
-        narrow_extremes(torch.zeros((4, 4), dtype=torch.int64), d, 0, 0)
+        narrow_extremes(torch.zeros((4, 4), dtype=dtype), d, 0, 0)
+
+
+def _routes(monkeypatch):
+    """Which of the plain version and the wrapper `narrow_extremes` calls."""
+    taken = []
+    monkeypatch.setattr(probe, "narrow_extremes_plain", lambda *a: taken.append("plain"))
+    monkeypatch.setattr(probe, "narrow_extremes_cuda", lambda *a: taken.append("kernel"))
+    return taken
+
+
+@pytest.mark.parametrize("name", ["int32", "uint32", "float32", "float64"])
+def test_tables_of_another_type_resolve_auto_to_false_unprobed(name, monkeypatch):
+    """`one_to_one_keys` narrows only int64 and uint64 keys, so on tables of
+    another type than the configuration's "auto" resolves to False and no
+    probe runs; flags given outright stay. `narrow_extremes` itself routes
+    by device alone: such buffers off the CPU reach the wrapper."""
+    taken = _routes(monkeypatch)
+    rows, dtype = generate_table(16, seed=1).astype(name), getattr(torch, name)
+    t1, t2 = (Table.from_numpy(rows, dtype=dtype, device="cpu") for _ in range(2))
+    resolved = resolve_narrow(EngineConfig(), t1, t2)
+    assert (resolved.narrow_keys, resolved.narrow_data) == (False, False)
+    given = resolve_narrow(EngineConfig(), t1, t2, narrow=True, narrow_data=True)
+    assert (given.narrow_keys, given.narrow_data) == (True, True)
+    assert taken == []
+    for device in ("cpu", "meta"):
+        d = torch.zeros((4, 4), dtype=dtype, device=device)
+        narrow_extremes(d, d, 0, 0)
+    assert taken == ["plain", "kernel"]
 
 
 @pytest.mark.parametrize("case", chip_smoke.probe_error_cases(), ids=lambda c: c[0])
@@ -124,7 +151,7 @@ def counting_probe(calls):
 
     def fake(d1, d2, k1, k2):
         calls.append((k1, k2))
-        build.launches += 1
+        build.launched("narrow_extremes")
         return narrow_extremes_plain(d1, d2, k1, k2)
 
     return fake
@@ -188,5 +215,5 @@ def test_narrow_fits_decides_as_the_host_probe(dtype, key, other):
     want = (cfg.resolve_narrow(rows[0][:, 0], rows[1][:, 0]).narrow_keys,
             cfg.resolve_narrow_data(*rows).narrow_data)
     assert got == want
-    pipe = QueryPipeline(cfg, device="cpu")
-    assert pipe._resolve_narrow_device(t1, t2) == want
+    resolved = resolve_narrow(cfg, t1, t2)
+    assert (resolved.narrow_keys, resolved.narrow_data) == want

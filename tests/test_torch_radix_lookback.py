@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from pim_sort_merge_join_tpu.ops.pallas import radix_sort as jradix
+from pim_sort_merge_join_tpu_torch.ops import kernels
 from pim_sort_merge_join_tpu_torch.ops.kernels import build
 from pim_sort_merge_join_tpu_torch.ops.kernels import radix_sort as rs
 
@@ -109,10 +110,10 @@ def test_lsd_blocked_plain_matches_reference_plain_and_numpy(name, tile):
 def test_lsd_wrapper_takes_the_plain_version_on_cpu_tensors():
     arrays, digit_bits, key_bits = LSD_CASES["three_operands"]
     ops = tuple(_t(a) for a in arrays)
-    before = dict(rs.LAUNCHES)
+    before = kernels.launch_counts()
     got = rs.xla_lsd_radix_sort(ops, digit_bits=digit_bits, key_bits=key_bits)
     _assert_equal(got, _numpy_sorted(arrays, digit_bits, key_bits))
-    assert rs.LAUNCHES == before
+    assert kernels.launch_counts() == before
     with pytest.raises(ValueError, match="unsupported devices"):
         rs.xla_lsd_radix_sort((ops[0].to("meta"),))
     with pytest.raises(ValueError, match="tensors must share one CUDA device"):
@@ -260,8 +261,9 @@ def test_state_words_hold_tickets_histograms_and_records():
 
 def test_module_mirrors_the_constants_of_the_cuda_source():
     text = (build.CSRC_DIR / "radix_sort.cu").read_text()
-    default = text.split("#else\n#define SMJ_RADIX_CONFIGS(X)")[1].split("#endif")[0]
-    configs = tuple(tuple(int(x) for x in m) for m in re.findall(r"X\((\d+), (\d+), (\d+)\)", default))
+    defined = text.split("#define SMJ_RADIX_CONFIGS(X)")[1].split("\n\n")[0]
+    configs = tuple(tuple(int(x) for x in m)
+                    for m in re.findall(r"X\((\d+), (\d+), (\d+)\)", defined))
     assert configs == rs.TILE_CONFIGS
     assert all(cap == threads * items for cap, threads, items in configs)
     assert list(configs) == sorted(configs)

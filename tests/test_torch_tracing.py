@@ -152,3 +152,28 @@ def test_record_nests_stages_with_their_counters(path, tmp_path):
         assert inner["unmerge"]["placed"] == CAP1 + CAP2
         # Table 1 with its row index column, table 2 without its key.
         assert inner["emit"]["bytes_out"] == CAP1 * 8 * 8
+
+
+@pytest.mark.parametrize("sort", ["hbm_sort", "bitonic"])
+def test_a_sort_inside_a_stage_counts_its_elements_and_passes(sort):
+    """A sort called under an open stage adds its ``elements`` and
+    ``passes`` to that stage through `build.count`, whose `counter` is
+    `engine/metrics.count`; outside a collector it counts nothing."""
+    from pim_sort_merge_join_tpu_torch.engine import metrics
+    from pim_sort_merge_join_tpu_torch.ops.kernels import bitonic_sort, build, hbm_sort
+
+    assert build.counter is metrics.count
+    keys = torch.arange(1000, 0, -1, dtype=torch.int32)
+    vals = torch.arange(1000, dtype=torch.int32)
+    if sort == "hbm_sort":
+        run, want = (lambda: hbm_sort.hbm_sort_plain((keys, vals))), (1000, passes(1000))
+    else:
+        run = lambda: bitonic_sort.sort_pairs(keys, vals)  # noqa: E731
+        # 1000 pads to the next power of two, at least the kernel's width.
+        want = (1000, len(bitonic_sort.bitonic_schedule(max(1024, bitonic_sort.MIN_WIDTH))))
+    run()  # no collector: nothing to count into
+    collector = metrics.MetricsCollector()
+    with metrics.collecting(collector), collector.stage("sort", span=False):
+        run()
+    (stage,) = collector.stages
+    assert (stage.extra["elements"], stage.extra["passes"]) == want
