@@ -24,7 +24,9 @@ Phases, in order; any failure exits non-zero:
      radix sorts over tiles, digit widths, key bits, operand counts and
      arrays one element off their alignment; the narrow probe's extremes
      over row widths, key columns, types, edge values, views and sizes,
-     and its errors on empty buffers),
+     and its errors on empty buffers; the fused keys over row widths,
+     capacities, row counts, operators, types, edge values and views,
+     narrow and wide, and their errors),
      then the shapes the paths give them, timed with CUDA events (median of
      3 after a warmup): the fused path's at 10M rows/table (its merge
      sort as phase A, phase B and whole, beside stable `torch.sort` of the
@@ -44,7 +46,8 @@ Phases, in order; any failure exits non-zero:
      `hbm_sort`'s result element for element and the plain version on the
      first 2^18 elements, beside `hbm_sort` and stable `torch.sort`; and
      the narrow probe over the 10M tables' buffers, beside `torch.aminmax`
-     of each buffer;
+     of each buffer; and the fused keys over the 10M tables, beside their
+     plain version and their bound;
   4. the query at 100k rows/table through `QueryPipeline.run_csv`: rows and
      CSV bytes equal the numpy oracle's;
   5. the fused query at 10M rows/table through `run_tables` (the main
@@ -658,15 +661,18 @@ def probe_views(t):
     """The same values as ``t`` (a 2D tensor) in other layouts: as it
     is, one element off the 16-byte alignment, every other row of a
     buffer twice as long, columns 1.. of a wider table, and column-major.
-    Built on int64 bits: torch has few uint64 ops on CUDA."""
+    Built on the signed bits of its width (`dtypes.bits`): torch has few
+    unsigned ops on CUDA."""
     import torch
 
-    b = t.view(torch.int64)
+    from pim_sort_merge_join_tpu_torch.columnar import dtypes
+
+    b = dtypes.bits(t)
     rows, ncol = b.shape
     flat = b.reshape(-1)
-    spaced = torch.zeros((2 * rows, ncol), dtype=torch.int64, device=b.device)
+    spaced = torch.zeros((2 * rows, ncol), dtype=b.dtype, device=b.device)
     spaced[::2] = b
-    wide = torch.zeros((rows, ncol + 2), dtype=torch.int64, device=b.device)
+    wide = torch.zeros((rows, ncol + 2), dtype=b.dtype, device=b.device)
     wide[:, 1:ncol + 1] = b
     views = {"contiguous": b, "one element in": one_element_in(flat).view(rows, ncol),
              "every other row": spaced[::2], "column slice": wide[:, 1:ncol + 1],
@@ -725,6 +731,172 @@ def probe_error(case, device) -> tuple[str, str] | None:
     return None
 
 
+KEYS_OPS = (">", ">=", "<", "<=", "==", "!=")
+# The pairs of table types the fused keys take: each type with itself, and
+# mixed pairs that `dtypes.promote` takes to int64, uint64, float32 and
+# float64.
+KEYS_TYPES = [("int64", "int64"), ("uint64", "uint64"), ("int32", "int32"), ("uint32", "uint32"),
+              ("float32", "float32"), ("float64", "float64"), ("int32", "int64"),
+              ("uint32", "int64"), ("int32", "uint32"), ("uint32", "uint64"), ("int32", "uint64"),
+              ("int64", "uint64"), ("int64", "float32"), ("uint64", "float64"),
+              ("float32", "float64"), ("uint32", "float32"), ("float64", "int32")]
+KEYS_FLOAT_EDGES = [np.nan, -np.nan, np.inf, -np.inf, 0.0, -0.0, 1.5, -1.5, 2.0**24 + 1, 2.0**31,
+                    -(2.0**31) - 1, 2.0**53 + 1, 2.0**63, 1e-30, 1e30, 1e300]
+# 8-byte integers that a float32 rounds differently from a float64 rounded
+# on to float32 (just above half a float32 step past 2^60, and its
+# neighbours in uint64), and one a float64 does not hold.
+KEYS_ROUNDING = np.array([2**60 + 2**36 + 1, -(2**60 + 2**36 + 1), 2**60 + 2**36, 2**53 + 1,
+                          -(2**63) + 2**39 + 1], np.int64)
+KEYS_INT32_EDGES = np.array([-(2**31), -(2**31) + 1, -1, 0, 1, 2**31 - 2, 2**31 - 1], np.int32)
+
+
+def keys_table(rng, rows: int, ncol: int, dtype):
+    """``rows x ncol`` of ``dtype`` with edge values planted: 8-byte
+    integers from `probe_table`'s int64 bits, three edges a column, and
+    `KEYS_ROUNDING` in one row in 64; 4-byte integers from int32 bits with
+    the int32 edges (as uint32, 2^31 and its neighbours), and floats small
+    integers and halves with NaN, the infinities, both zeros, the smallest
+    subnormal, the type's largest value and values past the integers it
+    holds exactly, in about one row in eight of every column."""
+    dt = np.dtype(dtype)
+    if dt.kind in "iu" and dt.itemsize == 8:
+        d = probe_table(rng, rows, ncol, 0, "both")
+        at = rng.integers(rows, size=(max(1, rows // 64), 2))
+        d[at[:, 0], at[:, 1] % ncol] = rng.choice(KEYS_ROUNDING, size=at.shape[0])
+        return d.view(dt)
+    if dt.kind in "iu":
+        d, edges = rng.integers(-(2**31), 2**31, (rows, ncol)).astype(np.int32), KEYS_INT32_EDGES
+    else:
+        info = np.finfo(dt)
+        d = (rng.integers(-200, 200, (rows, ncol)) / 2).astype(dt)
+        edges = np.array([v for v in KEYS_FLOAT_EDGES if not np.isfinite(v) or abs(v) <= float(info.max)]
+                         + [info.smallest_subnormal, info.max, -info.max], dt)
+    for c in range(ncol):  # an edge value in about one row in eight, three at least
+        at = rng.integers(rows, size=max(3, rows // 8))
+        d[at, c] = rng.choice(edges, size=at.shape[0])
+    return d.view(dt)
+
+
+def keys_cases(rng):
+    """The fused keys' inputs: ``(name, d1, d2, n1, n2, p1, p2, k1, k2)``:
+    numpy tables of a pair of `KEYS_TYPES` (`keys_table`), each table's
+    row count, predicate ``(col, op, value)`` and key column. Every shape
+    takes int64 tables and two other pairs in turn, so that every pair
+    appears. Capacities odd, even and off a multiple of 16 (the output's
+    spans straddle the tables' boundary), row counts 0, 1, the capacity
+    and between, rows of 1, 3, 4 and 7, predicate columns other than the
+    key's (but in one pair a shape), every operator, each value one of the table's own (a NaN
+    among them), and tables across many blocks; then each pair again, with
+    most rows valid."""
+    cases = []
+    shapes = [((1, 1), (1, 1)), ((3, 7), (5, 3)), ((4, 4), (1001, 999)), ((7, 3), (40_003, 70_001)),
+              ((4, 1), (3, 8)), ((1, 4), (70_001, 1)), ((4, 4), (17, 16)),
+              ((4, 4), (1_000_003, 1_500_001)), ((7, 1), (300_001, 2_000_000))]
+    others = KEYS_TYPES[1:]
+    for i, ((ncol1, ncol2), (cap1, cap2)) in enumerate(shapes):
+        pairs = [KEYS_TYPES[0], others[(2 * i) % len(others)], others[(2 * i + 1) % len(others)]]
+        for j, (ty1, ty2) in enumerate(pairs):
+            d1, d2 = keys_table(rng, cap1, ncol1, ty1), keys_table(rng, cap2, ncol2, ty2)
+            n1 = (0, 1, cap1, cap1 // 2)[(i + j) % 4]
+            n2 = (cap2, cap2 // 3, 0, 1)[(i + 2 * j) % 4]
+            k1, k2 = int(rng.integers(-ncol1, ncol1)), int(rng.integers(ncol2))
+            preds = []
+            for d, k, t in ((d1, k1, 3 * i + j), (d2, k2, 3 * i + j + 3)):
+                ncol = d.shape[1]
+                col = int(rng.integers(-ncol, ncol))
+                if j != 1 and ncol > 1:  # another column than the key's, from either end
+                    col = (k + int(rng.integers(1, ncol))) % ncol - ncol * int(rng.integers(2))
+                preds.append((col, KEYS_OPS[t % 6], d[rng.integers(d.shape[0]), col].item()))
+            name = (f"{cap1}x{ncol1} {ty1} {n1} rows {preds[0]} k{k1} / {cap2}x{ncol2} {ty2} "
+                    f"{n2} rows {preds[1]} k{k2}")
+            cases.append((name, d1, d2, n1, n2, *preds, k1, k2))
+    for i, (ty1, ty2) in enumerate(KEYS_TYPES):  # each pair with most rows valid
+        d1, d2 = keys_table(rng, 3001, 4, ty1), keys_table(rng, 2999, 3, ty2)
+        preds = [(c, KEYS_OPS[(i + t) % 6], d[rng.integers(d.shape[0]), c].item())
+                 for t, (d, c) in enumerate(((d1, 1), (d2, -1)))]
+        name = f"3001x4 {ty1} / 2999x3 {ty2} {preds}"
+        cases.append((name, d1, d2, 2990, 2999, *preds, 0, 0))
+    return cases
+
+
+def keys_err(case) -> int:
+    """Keys of `join_keys_cuda` that differ from the plain version's on the
+    CPU, narrow and wide, over pairs of views of the case's tables
+    (`probe_views`); one launch a call."""
+    import torch
+
+    from pim_sort_merge_join_tpu_torch import Predicate, Table
+    from pim_sort_merge_join_tpu_torch.ops import kernels
+    from pim_sort_merge_join_tpu_torch.ops.kernels import keys
+
+    name, a1, a2, n1, n2, p1, p2, k1, k2 = case
+    h1, h2 = torch.from_numpy(a1), torch.from_numpy(a2)
+    c1, c2 = (torch.tensor(n, dtype=torch.int32) for n in (n1, n2))
+    r1, r2 = c1.cuda(), c2.cuda()
+    p1, p2 = Predicate(*p1), Predicate(*p2)
+    v1, v2 = probe_views(h1.cuda()), probe_views(h2.cuda())
+    err = 0
+    for narrow in (False, True):
+        want = keys.join_keys_plain(Table(h1, c1), Table(h2, c2), p1, p2, k1, k2, narrow)
+        for w1, w2 in zip(v1.values(), list(v2.values())[1:] + list(v2.values())[:1]):
+            for a, b in ((w1, w2), (v1["contiguous"], w2), (w1, v2["contiguous"])):
+                before = kernels.launch_counts()["join_keys"]
+                got = keys.join_keys_cuda(Table(a, r1), Table(b, r2), p1, p2, k1, k2, narrow).cpu()
+                check(kernels.launch_counts()["join_keys"] == before + 1,
+                      f"join_keys case {name}: not one launch")
+                check(got.dtype == want.dtype and got.shape == want.shape,
+                      f"join_keys case {name}: {got.dtype} {tuple(got.shape)}, the plain version "
+                      f"{want.dtype} {tuple(want.shape)}")
+                err += int((got != want).sum())
+    return err
+
+
+def keys_error_cases():
+    """Calls at the edge of what the plain version takes, on one 5 x 4
+    table of 4 rows: ``(name, dtype, p1, p2, k1, k2)``, each predicate
+    ``(col, op, value)``: values past the type's range, columns before and
+    past the row, an unknown operator, and two faults in one call, of which
+    the plain version raises the first."""
+    nan = float("nan")
+    return [
+        ("value past int64", "int64", (0, ">", 2**63), (0, ">", 0), 0, 0),
+        ("value below int64", "int64", (0, ">", 0), (1, "<", -(2**63) - 1), 0, 0),
+        ("value past uint64", "uint64", (0, ">", 2**64), (0, ">", 0), 0, 0),
+        ("negative uint64 value", "uint64", (0, ">", 0), (0, "!=", -1), 0, 0),
+        ("value past int32", "int32", (0, ">", 2**31), (0, ">", 0), 0, 0),
+        ("NaN for int32", "int32", (0, ">", 0), (2, "==", nan), 0, 0),
+        ("value past uint32", "uint32", (0, "<", 2**32), (0, ">", 0), 0, 0),
+        ("huge value for int64", "int64", (0, ">=", 1e30), (0, ">", 0), 0, 0),
+        ("predicate column past the row", "int64", (4, ">", 0), (0, ">", 2**64), 0, 0),
+        ("predicate column before the row", "uint64", (-5, ">", 0), (0, ">", 0), 0, 0),
+        ("unknown operator", "int64", (0, "<>", 0), (0, ">", 0), 0, 0),
+        ("unknown operator on floats", "float32", (0, ">", 0), (0, "=", 1.5), 0, 0),
+        ("key column past the row", "int64", (0, ">", 0), (0, ">", 0), 4, 0),
+        ("second key before the row", "uint64", (0, ">", 0), (0, ">", 0), 0, -5),
+        ("float key past the row", "float64", (0, ">", 0), (0, ">", 0), 0, 4),
+        ("bad value before bad keys", "int64", (0, ">", 2**70), (0, ">", 0), 9, 9),
+        ("negative columns", "uint64", (-1, "<=", 2**63 + 9), (-4, ">=", 3), -1, -2),
+    ]
+
+
+def keys_error(case, device) -> tuple[str, str] | None:
+    """``(type, message)`` that `join_keys` raises on ``device`` for an
+    error case, or None where it returns."""
+    import torch
+
+    from pim_sort_merge_join_tpu_torch import Predicate, Table
+    from pim_sort_merge_join_tpu_torch.ops.kernels import keys
+
+    _, dtype, p1, p2, k1, k2 = case
+    d = torch.from_numpy(np.arange(20).reshape(5, 4).astype(dtype)).to(device)
+    t = Table(d, torch.tensor(4, dtype=torch.int32, device=device))
+    try:
+        keys.join_keys(t, t, Predicate(*p1), Predicate(*p2), k1, k2, True)
+    except Exception as e:  # noqa: BLE001 - the error itself is compared
+        return type(e).__name__, str(e)
+    return None
+
+
 def plain_sort_pairs(keys, vals):
     """`sort_pairs` with the plain network, on the tensors' own device."""
     import torch
@@ -775,12 +947,19 @@ def phase_adversarial(rng) -> dict[str, int]:
     from pim_sort_merge_join_tpu_torch.ops.kernels import radix_sort as rs
 
     errs = {"sort": 0, "scan": 0, "scan_forward": 0, "scan_backward": 0, "place": 0, "bitonic": 0,
-            "radix": 0, "lsd": 0, "gather_rows": 0, "gather": 0, "probe": 0}
+            "radix": 0, "lsd": 0, "gather_rows": 0, "gather": 0, "probe": 0, "keys": 0}
     sorts, scans = sort_cases(rng), scan_cases(rng)
     bitonics, radixes, lsds = bitonic_cases(rng), radix_cases(rng), lsd_cases(rng)
     widths = bitonic_width_cases(rng, bs.LOG_TILE)
     rows, columns = gather_rows_cases(rng), column_gather_cases(rng)
-    probes = probe_cases(rng)
+    probes, keyses = probe_cases(rng), keys_cases(rng)
+    for case in keyses:
+        err = keys_err(case)
+        check(err == 0, f"join_keys case {case[0]}: kernel differs from plain ({err} keys)")
+        errs["keys"] = max(errs["keys"], err)
+    for case in keys_error_cases():
+        got, want = keys_error(case, "cuda"), keys_error(case, "cpu")
+        check(got == want, f"join_keys error case {case[0]}: {got}, the plain version {want}")
     for case in probes:
         err = probe_err(case)
         check(err == 0, f"narrow_extremes case {case[0]}: kernel differs from plain ({err} values)")
@@ -841,8 +1020,8 @@ def phase_adversarial(rng) -> dict[str, int]:
     torch.cuda.synchronize()
     log(f"adversarial: {len(sorts)} sort, {len(scans)} scan, {len(bitonics)} + {len(widths)} "
         f"bitonic, {len(radixes)} radix tile, {len(lsds)} global radix, {len(rows)} row gather, "
-        f"{len(columns)} column gather, {len(probes)} + {len(probe_error_cases())} narrow probe "
-        "cases equal")
+        f"{len(columns)} column gather, {len(probes)} + {len(probe_error_cases())} narrow probe, "
+        f"{len(keyses)} + {len(keys_error_cases())} fused keys cases equal")
     return errs
 
 
@@ -985,6 +1164,37 @@ def phase_probe_shape(r1, r2) -> dict:
            "library_ms": per_call(lambda: (torch.aminmax(d1), torch.aminmax(d2))),
            **bound(nbytes(d1, d2))}
     log("narrow probe at the query's shape: " + json.dumps(rec))
+    return rec
+
+
+def phase_keys_shape(r1, r2, cfg) -> dict:
+    """The fused keys over the 10M query's two tables, narrowed as the
+    query resolves them: equal to the plain version, launched once a call;
+    the kernel's time (20 calls back to back, per call, so that the
+    wrapper's host time, which the card hides behind the launch before,
+    does not count; CUDA events, median of 9), one call alone, the plain
+    version's and the bound: each table's rows read once (a 32-byte row is
+    one sector, which holds the key and predicate columns) and the keys
+    written once."""
+    import torch
+
+    from pim_sort_merge_join_tpu_torch import Table
+    from pim_sort_merge_join_tpu_torch.ops import kernels
+    from pim_sort_merge_join_tpu_torch.ops.kernels import keys
+
+    t1, t2 = Table.from_numpy(r1), Table.from_numpy(r2)
+    args = (t1, t2, cfg.predicate1, cfg.predicate2, cfg.join_key1, cfg.join_key2, True)
+    want = keys.join_keys_plain(*args)
+    before = kernels.launch_counts()["join_keys"]
+    err = sum(int((keys.join_keys_cuda(*args) != want).sum()) for _ in range(20))
+    check(err == 0, f"join_keys at the query's shape: {err} keys differ from plain")
+    check(kernels.launch_counts()["join_keys"] == before + 20, "join_keys: not one launch a call")
+    rec = {"err": err, "shape": [list(t1.data.shape), list(t2.data.shape)], "dtype": str(want.dtype),
+           "ms": time_ms(lambda _: [keys.join_keys_cuda(*args) for _ in range(20)], reps=9) / 20,
+           "one_call_ms": time_ms(lambda _: keys.join_keys_cuda(*args), reps=9),
+           "plain_ms": time_ms(lambda _: keys.join_keys_plain(*args), reps=9),
+           **bound(nbytes(t1.data, t2.data, want))}
+    log("fused keys at the query's shape: " + json.dumps(rec))
     return rec
 
 
@@ -1433,6 +1643,12 @@ STAGED_BITONIC_KERNELS = STAGED_KERNELS | {"bitonic_local", "bitonic_strided"}
 # queries (probed on the host) and a resumable run on one device probe
 # nothing on the card.
 PROBE_KERNELS = {"narrow_extremes"}
+# The fused path's keys (`ops/kernels/keys.join_keys`), once a query,
+# wherever `pipeline_core`'s fused branch runs on tables of the card, of
+# any types (`run_tables` on one device, `entry`). The operators, the hash
+# paths, the multi-device engine's local joins and a resumable run make
+# their keys with torch ops.
+KEYS_KERNELS = {"join_keys"}
 
 
 def staged_inputs(n: int, sort_algorithm: str):
@@ -1572,7 +1788,7 @@ def phase_hash_shapes(r1, r2, cfg) -> dict:
 
     iota1 = torch.arange(cap1, dtype=torch.int32, device="cuda")
     t1aug = Table(torch.cat([f1.data, iota1.to(f1.dtype)[:, None]], dim=1), f1.num_rows, ())
-    joined = join_ops._one_to_one_merged(t1aug, f2, 0, h1, h2)
+    joined = join_ops._one_to_one_merged(t1aug, f2, 0, torch.cat([h1, h2]))
     num_out = joined.num_rows
     j = torch.arange(joined.capacity, dtype=torch.int32, device="cuda")
     restore = torch.where(j < num_out, joined.data[:, f1.ncol].to(torch.int32), cap1 + j)
@@ -1803,12 +2019,13 @@ def phase_types(r1, r2, cfg, a1, a2, acfg) -> dict:
     u1, u2 = (Table.from_numpy(shifted_key(r, np.uint64, hi), dtype=np.uint64) for r in (r1, r2))
     rec["uint64 fused 10M"] = typed_query(
         u1, u2, dataclasses.replace(cfg, dtype="uint64", predicate1=upred, predicate2=upred),
-        shifted_key(want, np.uint64, hi), "uint64 fused 10M", TYPED_FUSED_KERNELS | PROBE_KERNELS)
+        shifted_key(want, np.uint64, hi), "uint64 fused 10M",
+        TYPED_FUSED_KERNELS | PROBE_KERNELS | KEYS_KERNELS)
     del u1, u2
     f1, f2 = (Table.from_numpy(r, dtype=np.float64) for r in (r1, r2))
     fcfg = dataclasses.replace(cfg, dtype="float64")
     rec["float64 fused 10M"] = typed_query(f1, f2, fcfg, want.astype(np.float64),
-                                           "float64 fused 10M", TYPED_FUSED_KERNELS)
+                                           "float64 fused 10M", TYPED_FUSED_KERNELS | KEYS_KERNELS)
     rec["float64 hash 1:1 10M"] = typed_query(f1, f2, hash_config(fcfg),
                                               want_hash.astype(np.float64),
                                               "float64 hash 1:1 10M", TYPED_HASH_KERNELS)
@@ -2043,7 +2260,7 @@ ENTRY_WIDTHS = (4096, 10_000_000)
 # its aggregate the staged ones; 04's table sorts, merges and resumable 1:1
 # join (unresolved narrow: wide) the same.
 EXAMPLE_KERNELS = {
-    "single_chip_pipeline": FUSED_KERNELS,
+    "single_chip_pipeline": FUSED_KERNELS | KEYS_KERNELS,
     "distributed": set(),
     "hash_join_aggregate": FUSED_WIDE_KERNELS,
     "streaming_merge_checkpoint": FUSED_WIDE_KERNELS,
@@ -2158,6 +2375,7 @@ def phase_entry_examples(card: str) -> dict:
             path, kernels_of_path = (
                 ("FUSED_KERNELS", FUSED_KERNELS) if fn.keywords["config"].narrow_keys is True
                 else ("FUSED_WIDE_KERNELS", FUSED_WIDE_KERNELS))
+            kernels_of_path = kernels_of_path | KEYS_KERNELS
             out, launches = run_counted(lambda: fn(t1, t2), kernels_of_path, f"entry({n})")
             results[n] = out.to_numpy()
             ms = time_ms(lambda _: fn(t1, t2))
@@ -2579,12 +2797,13 @@ LAUNCH_KEYS = {
     "join_scan_forward": {"join_scan_forward"}, "join_scan_backward": {"join_scan_backward"},
     "join_scan_place": {"join_scan_place"},
     "bitonic_sort": {"bitonic_local", "bitonic_strided"}, "radix_tile_sort": {"radix_tile"},
-    "lsd_radix_sort": LSD_KERNELS, "narrow_extremes": PROBE_KERNELS,
+    "lsd_radix_sort": LSD_KERNELS, "narrow_extremes": PROBE_KERNELS, "join_keys": KEYS_KERNELS,
 }
 
 # The device names of the kernels in csrc/, as the profiler lists them.
 PORT_KERNEL_NAMES = ("run_sort_kernel", "merge_kernel", "gather_kernel", "gather_rows_kernel",
-                     "join_scan_", "bitonic_pass_kernel", "radix_", "narrow_extremes_kernel")
+                     "join_scan_", "bitonic_pass_kernel", "radix_", "narrow_extremes_kernel",
+                     "join_keys_kernel")
 
 
 def phase_profile() -> None:
@@ -2681,16 +2900,17 @@ def main() -> int:
     r1, r2, cfg = slice_inputs(10_000_000)
     shapes = phase_main_path_shapes(r1, r2, cfg)
     probe_rec = phase_probe_shape(r1, r2)
+    keys_rec = phase_keys_shape(r1, r2, cfg)
     torch.cuda.empty_cache()
     bitonic = phase_bitonic_shape(rng)
     phase_csv_100k()
     launches, ms10, rows10 = phase_slice(r1, r2, cfg, expect_narrow=True, label="10M",
-                                         kernels_of_path=FUSED_KERNELS | PROBE_KERNELS)
+                                         kernels_of_path=FUSED_KERNELS | PROBE_KERNELS | KEYS_KERNELS)
     del r1, r2
     torch.cuda.empty_cache()
     w1, w2, wcfg = slice_inputs(1_000_000, key_offset=2**40)
     phase_slice(w1, w2, wcfg, expect_narrow=False, label="1M wide keys",
-                kernels_of_path=FUSED_WIDE_KERNELS | PROBE_KERNELS)
+                kernels_of_path=FUSED_WIDE_KERNELS | PROBE_KERNELS | KEYS_KERNELS)
     a1, a2, acfg = staged_inputs(10_000_000, "auto")
     launches_a, msa, rowsa = phase_slice(a1, a2, acfg, expect_narrow=True, label="staged inner 10M",
                                 kernels_of_path=STAGED_KERNELS | PROBE_KERNELS)
@@ -2811,6 +3031,13 @@ def main() -> int:
                  probe_rec, probe_rec["library_ms"]),
          "replaces": "pim_sort_merge_join_tpu/engine/pipeline.py:138 "
                      "QueryPipeline._resolve_narrow_device, probe"},
+        # No Pallas kernel: the JAX package's fused keys are part of one
+        # jitted function. No one PyTorch call makes them.
+        {**entry("join_keys", "keys.cu", "", launches["join_keys"],
+                 max(errs["keys"], keys_rec["err"]), keys_rec["ms"], keys_rec["plain_ms"],
+                 keys_rec),
+         "replaces": "pim_sort_merge_join_tpu/engine/pipeline.py:58 pipeline_core, the fused "
+                     "path's predicate masks and keys"},
     ]
     log(f"slice 10M: {rows10} rows in {ms10:.3f} ms; staged inner 10M: {rowsa} rows in "
         f"{msa:.3f} ms; staged inner 2M bitonic: {rowsb} rows in {msb:.3f} ms; hash 1:1 10M: "

@@ -154,6 +154,40 @@ def order_value(value, dtype: torch.dtype) -> int:
     return int(order_key(scalar)[0])
 
 
+# A predicate's comparison by its operator.
+_COMPARE = {
+    ">": torch.gt,
+    ">=": torch.ge,
+    "<": torch.lt,
+    "<=": torch.le,
+    "==": torch.eq,
+    "!=": torch.ne,
+}
+
+
+def compare(x: torch.Tensor, op: str, value) -> torch.Tensor:
+    """``x <op> value`` elementwise, a bool tensor. Signed integers and
+    floats compare as torch compares them (a NaN fails every operator but
+    ``!=``); unsigned ones compare through their order keys, since torch
+    has no ordering comparison for them, so a value above the int64 range
+    (a uint64 one) is exact there. ``value`` is converted to ``x``'s type
+    first, and raises where it does not fit."""
+    if is_unsigned(x.dtype):
+        x, value = order_key(x), order_value(value, x.dtype)
+    else:
+        value = torch.tensor(value, dtype=x.dtype, device=x.device)
+    return _COMPARE[op](x, value)
+
+
+def narrow32(keys: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Order keys of an 8-byte integer ``dtype`` whose values fit int32 as
+    int32, the sentinel as the int32 sentinel (the JAX package's
+    `ops/join._narrow32`, which casts the values)."""
+    sent32 = torch.iinfo(torch.int32).max
+    values = keys ^ torch.iinfo(torch.int64).min if dtype == torch.uint64 else keys
+    return torch.where(keys == order_max(dtype), sent32, values).to(torch.int32)
+
+
 def promote(a: torch.dtype, b: torch.dtype) -> torch.dtype:
     """The type of a concatenation of ``a`` and ``b`` in the JAX package
     (``jnp.promote_types`` with 64-bit types on): a signed and an unsigned

@@ -115,6 +115,11 @@ class Table:
         iota = torch.arange(self.capacity, dtype=torch.int32, device=self.device)
         return iota < self.num_rows
 
+    def predicate_mask(self, pred) -> torch.Tensor:
+        """Boolean ``[capacity]`` mask of valid rows on which ``pred`` (a
+        `config.Predicate`) holds, as `dtypes.compare` compares."""
+        return self.valid_mask() & dtypes.compare(self.column(pred.col), pred.op, pred.value)
+
     def masked_keys(self, col: int) -> torch.Tensor:
         """Column ``col`` in the table's type with padding rows replaced by
         `key_sentinel` (the type's maximum, +inf for floats)."""
@@ -122,12 +127,21 @@ class Table:
         col_bits = torch.where(self.valid_mask(), dtypes.bits(self.data[:, col]), sent)
         return dtypes.from_bits(col_bits, self.dtype)
 
-    def order_keys(self, col: int) -> torch.Tensor:
-        """`dtypes.order_key` of column ``col`` with padding rows replaced by
-        the order sentinel: what the sorts and joins compare."""
-        return torch.where(
-            self.valid_mask(), dtypes.order_key(self.data[:, col]), dtypes.order_max(self.dtype)
-        )
+    def order_keys(
+        self, col: int, dtype: torch.dtype | None = None, mask: torch.Tensor | None = None
+    ) -> torch.Tensor:
+        """`dtypes.order_key` of column ``col`` taken as ``dtype`` (the
+        table's own by default; a join's the two tables' promoted type),
+        rows outside ``mask`` (padding by default) the order sentinel: what
+        the sorts and joins compare. A table of another type is converted
+        as the reference's concatenation converts it, its own sentinel
+        included."""
+        valid = self.valid_mask() if mask is None else mask
+        if dtype is None or dtype == self.dtype:
+            return torch.where(valid, dtypes.order_key(self.data[:, col]),
+                               dtypes.order_max(self.dtype))
+        masked = torch.where(valid, dtypes.bits(self.data[:, col]), dtypes.sentinel_bits(self.dtype))
+        return dtypes.order_key(dtypes.from_bits(masked, self.dtype).to(dtype))
 
     def to_numpy(self) -> np.ndarray:
         """Row-major ``[num_rows, ncol]`` host array of the valid rows."""

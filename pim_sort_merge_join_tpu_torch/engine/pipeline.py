@@ -30,6 +30,7 @@ from pim_sort_merge_join_tpu_torch.ops import filter as filter_ops
 from pim_sort_merge_join_tpu_torch.ops import join as join_ops
 from pim_sort_merge_join_tpu_torch.ops import sort as sort_ops
 from pim_sort_merge_join_tpu_torch.ops.hash_join import hash_join
+from pim_sort_merge_join_tpu_torch.ops.kernels.keys import join_keys
 from pim_sort_merge_join_tpu_torch.ops.kernels.probe import narrow_extremes
 from pim_sort_merge_join_tpu_torch.utils import validate
 
@@ -45,13 +46,12 @@ def pipeline_core(t1: Table, t2: Table, config: EngineConfig) -> Table:
         # Fused path: filtering is a key mask and the join's slot-permutation
         # sorts subsume the standalone compaction and table sorts.
         with metrics.stage("keys", rows_in=t1.capacity + t2.capacity):
-            m1 = filter_ops.predicate_mask(t1, config.predicate1)
-            m2 = filter_ops.predicate_mask(t2, config.predicate2)
-            k1, k2 = join_ops.one_to_one_keys(
-                t1, t2, config.join_key1, config.join_key2, m1, m2, narrow=config.narrow_keys,
+            keys = join_keys(
+                t1, t2, config.predicate1, config.predicate2, config.join_key1,
+                config.join_key2, config.narrow_keys,
             )
         return join_ops._one_to_one_merged(
-            t1, t2, config.join_key2, k1, k2, sort_algorithm=config.sort_algorithm,
+            t1, t2, config.join_key2, keys, sort_algorithm=config.sort_algorithm,
         )
     with metrics.stage("filter", rows_in=t1.capacity + t2.capacity):
         f1 = filter_ops.apply_filter(t1, config.predicate1)
@@ -113,7 +113,7 @@ def resolve_narrow(
     `narrow_fits`). ``reduce(lo, hi)`` combines the extremes of every rank
     (`DistributedQueryPipeline`). "auto" resolves to False, with no probe,
     unless both the configuration's type and the tables' are int64 or
-    uint64: `one_to_one_keys` narrows no other type."""
+    uint64: `join_keys` narrows no other type."""
     narrow = config.narrow_keys if narrow is None else narrow
     narrow_data = config.narrow_data if narrow_data is None else narrow_data
     if "auto" in (narrow, narrow_data):

@@ -4,11 +4,11 @@ The fused pipeline needs only the predicate mask: masked-out rows get
 sentinel keys and the join's sorts place the survivors. The staged path
 compacts each table first (`apply_filter`).
 
-Signed integers and floats compare as torch compares them (a NaN value
-fails every predicate but ``!=``, as in the JAX package); unsigned columns
-compare through their order keys (`columnar/dtypes.order_key`), since torch
-has no ordering comparison for them, and a predicate value above the int64
-range (a uint64 one) is exact there.
+A predicate compares as `columnar/dtypes.compare` compares: signed
+integers and floats as torch compares them (a NaN value fails every
+predicate but ``!=``, as in the JAX package), unsigned columns through
+their order keys, so a predicate value above the int64 range (a uint64
+one) is exact there.
 """
 
 from __future__ import annotations
@@ -21,24 +21,10 @@ from pim_sort_merge_join_tpu_torch.columnar import dtypes
 from pim_sort_merge_join_tpu_torch.columnar.table import Table
 from pim_sort_merge_join_tpu_torch.config import Predicate
 
-_OPS = {
-    ">": torch.gt,
-    ">=": torch.ge,
-    "<": torch.lt,
-    "<=": torch.le,
-    "==": torch.eq,
-    "!=": torch.ne,
-}
-
 
 def predicate_mask(table: Table, pred: Predicate) -> torch.Tensor:
     """Boolean mask of valid rows satisfying the predicate."""
-    col = table.column(pred.col)
-    if dtypes.is_unsigned(table.dtype):
-        col, value = dtypes.order_key(col), dtypes.order_value(pred.value, table.dtype)
-    else:
-        value = torch.tensor(pred.value, dtype=table.dtype, device=table.device)
-    return table.valid_mask() & _OPS[pred.op](col, value)
+    return table.predicate_mask(pred)
 
 
 def compact(table: Table, mask: torch.Tensor) -> Table:

@@ -169,7 +169,7 @@ def hash_join(
         ords = iota1.to(t1.dtype if t1.dtype.is_floating_point else dtypes.signed_of(t1.dtype))
         aug = torch.cat([dtypes.bits(t1.data), dtypes.bits(ords)[:, None]], dim=1)
         t1aug = dataclasses.replace(t1, data=dtypes.from_bits(aug, t1.dtype))
-        joined = join_ops._one_to_one_merged(t1aug, t2, key2, h1, h2)
+        joined = join_ops._one_to_one_merged(t1aug, t2, key2, torch.cat([h1, h2]))
         # joined columns: t1's, the row index (at t1.ncol), t2's without its key.
         ordc = t1.ncol
         num_out = joined.num_rows

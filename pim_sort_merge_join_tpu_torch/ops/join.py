@@ -43,9 +43,9 @@ from pim_sort_merge_join_tpu_torch.columnar.table import Table
 from pim_sort_merge_join_tpu_torch.engine import metrics
 from pim_sort_merge_join_tpu_torch.ops.kernels import join_scan
 from pim_sort_merge_join_tpu_torch.ops.kernels.gather import gather_rows
+from pim_sort_merge_join_tpu_torch.ops.kernels.keys import one_to_one_keys
 from pim_sort_merge_join_tpu_torch.ops.sort import (
     _ALGORITHMS,
-    narrow32,
     sort_key_permutation,
     stable_key_sort,
 )
@@ -65,18 +65,6 @@ def _out_buffer(t1: Table, t2: Table, key2: int, rows: int):
     keep2 = [c for c in range(t2.ncol) if c != key2]
     data1, data2 = (dtypes.bits(t.data.to(dtype)).contiguous() for t in (t1, t2))
     return out, dtypes.bits(out), data1, data2, keep2
-
-
-def _order_keys(t: Table, col: int, dtype: torch.dtype, mask: torch.Tensor | None = None):
-    """Order keys of column ``col`` of ``t`` taken as ``dtype`` (the two
-    tables' promoted type), rows outside ``mask`` (padding by default) the
-    sentinel. A table of another type is converted as the reference's
-    concatenation converts it, its own sentinel included."""
-    valid = t.valid_mask() if mask is None else mask
-    if t.dtype == dtype:
-        return torch.where(valid, dtypes.order_key(t.data[:, col]), dtypes.order_max(dtype))
-    masked = torch.where(valid, dtypes.bits(t.data[:, col]), dtypes.sentinel_bits(t.dtype))
-    return dtypes.order_key(dtypes.from_bits(masked, t.dtype).to(dtype))
 
 
 def _emit(
@@ -118,7 +106,7 @@ def _run_starts(keys: torch.Tensor) -> torch.Tensor:
 def _match_info(t1: Table, t2: Table, key1: int, key2: int) -> _MatchInfo:
     """Per-t1-row (lo2, cnt2, occ) via the merged key domain."""
     dtype = dtypes.promote(t1.dtype, t2.dtype)
-    return _match_info_keys(_order_keys(t1, key1, dtype), _order_keys(t2, key2, dtype))
+    return _match_info_keys(t1.order_keys(key1, dtype), t2.order_keys(key2, dtype))
 
 
 def _match_info_keys(k1: torch.Tensor, k2: torch.Tensor) -> _MatchInfo:
@@ -148,9 +136,9 @@ def _narrow32(k: torch.Tensor) -> torch.Tensor:
 
     Order-preserving: the caller guarantees every valid key lies in
     [INT32_MIN, INT32_MAX), and the 64-bit sentinel maps to the 32-bit one
-    (`ops/sort.narrow32` for the order keys of either 8-byte type).
+    (`columnar/dtypes.narrow32` for the order keys of either 8-byte type).
     """
-    return narrow32(k, torch.int64)
+    return dtypes.narrow32(k, torch.int64)
 
 
 def _merged_dest(mkeys: torch.Tensor, mpos: torch.Tensor, cap1: int):
@@ -160,41 +148,19 @@ def _merged_dest(mkeys: torch.Tensor, mpos: torch.Tensor, cap1: int):
     return join_scan.join_scan_dest(mkeys, mpos, cap1)
 
 
-def one_to_one_keys(
-    t1: Table,
-    t2: Table,
-    key1: int,
-    key2: int,
-    mask1: torch.Tensor | None = None,
-    mask2: torch.Tensor | None = None,
-    *,
-    narrow: bool = False,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """The fused 1:1 join's key vectors: each table's key column as order
-    keys of the two tables' promoted type, rows outside its mask (padding
-    by default) the sentinel. ``narrow is True`` narrows those of an 8-byte
-    integer type to int32 (an unresolved "auto" stays wide)."""
-    dtype = dtypes.promote(t1.dtype, t2.dtype)
-    k1 = _order_keys(t1, key1, dtype, mask1)
-    k2 = _order_keys(t2, key2, dtype, mask2)
-    if narrow is True and k1.dtype == torch.int64 and dtype in (torch.int64, torch.uint64):
-        k1, k2 = narrow32(k1, dtype), narrow32(k2, dtype)
-    return k1, k2
-
-
 def _one_to_one_merged(
     t1: Table,
     t2: Table,
     key2: int,
-    k1: torch.Tensor,
-    k2: torch.Tensor,
+    keys: torch.Tensor,
     *,
     sort_algorithm: str = "auto",
 ) -> Table:
-    """1:1 join core over pre-masked key vectors; sortedness NOT required.
+    """1:1 join core over one pre-masked key vector; sortedness NOT required.
 
-    ``k1``/``k2`` are int32/int64 order keys (`one_to_one_keys`, the
-    sentinel where masked) or hashes.
+    ``keys`` is both tables' keys, table 1's ``t1.capacity`` first: int32
+    or int64 order keys (`ops/kernels/keys.join_keys`, the sentinel where
+    masked) or hashes.
 
     1. merge both key columns: one stable sort, whose permutation is each
        element's concat position (t1 first on ties); the scan gives each
@@ -217,7 +183,7 @@ def _one_to_one_merged(
 
     # --- 1. merge the key columns (t1 wins ties) ---------------------------
     with metrics.stage("merge"):
-        mkeys, mpos = sort_key_permutation(torch.cat([k1, k2]))
+        mkeys, mpos = sort_key_permutation(keys)
         dest, num_out = _merged_dest(mkeys, mpos, cap1)
     del mkeys
 
@@ -250,8 +216,8 @@ def merge_join_one_to_one(
     """Reference-semantics 1:1 merge join; output capacity is t1's.
     ``narrow_data`` is accepted for the reference's signature (see
     `_one_to_one_merged`)."""
-    k1, k2 = one_to_one_keys(t1, t2, key1, key2, narrow=narrow)
-    return _one_to_one_merged(t1, t2, key2, k1, k2, sort_algorithm=sort_algorithm)
+    keys = one_to_one_keys(t1, t2, key1, key2, narrow=narrow)
+    return _one_to_one_merged(t1, t2, key2, keys, sort_algorithm=sort_algorithm)
 
 
 def filter_join_one_to_one(
@@ -273,8 +239,8 @@ def filter_join_one_to_one(
     equals the staged filter -> sort -> join path byte for byte.
     ``narrow_data`` as in `merge_join_one_to_one`.
     """
-    k1, k2 = one_to_one_keys(t1, t2, key1, key2, mask1, mask2, narrow=narrow)
-    return _one_to_one_merged(t1, t2, key2, k1, k2, sort_algorithm=sort_algorithm)
+    keys = one_to_one_keys(t1, t2, key1, key2, mask1, mask2, narrow=narrow)
+    return _one_to_one_merged(t1, t2, key2, keys, sort_algorithm=sort_algorithm)
 
 
 def merge_join_inner(

@@ -7,6 +7,7 @@ from pim_sort_merge_join_tpu_torch.ops.kernels import (
     gather,
     hbm_sort,
     join_scan,
+    keys,
     probe,
     radix_sort,
 )

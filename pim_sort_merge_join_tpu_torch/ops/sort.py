@@ -35,15 +35,6 @@ from pim_sort_merge_join_tpu_torch.ops.kernels.hbm_sort import (
 _ALGORITHMS = ("auto", "xla", "hbm_pallas", "hbm_adaptive", "pallas_bitonic")
 
 
-def narrow32(keys: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Order keys of an 8-byte integer ``dtype`` whose values fit int32 as
-    int32, the sentinel as the int32 sentinel (the JAX package's
-    `ops/join._narrow32`, which casts the values)."""
-    sent32 = torch.iinfo(torch.int32).max
-    values = keys ^ torch.iinfo(torch.int64).min if dtype == torch.uint64 else keys
-    return torch.where(keys == dtypes.order_max(dtype), sent32, values).to(torch.int32)
-
-
 def _bitonic_keys(table: Table, key: int) -> torch.Tensor:
     """The int32 keys the bitonic sort takes, as the reference makes them
     (`ops/sort.py:115-120`): a wider key clipped to the int32 range by
@@ -87,7 +78,7 @@ def sort_by_key(
     if algorithm != "pallas_bitonic":
         keys = table.order_keys(key)
         if narrow is True and table.dtype in (torch.int64, torch.uint64):
-            keys = narrow32(keys, table.dtype)
+            keys = dtypes.narrow32(keys, table.dtype)
         data = hbm_sort_rows([(keys, rows)])
     else:
         iota = torch.arange(table.capacity, dtype=torch.int32, device=table.device)

@@ -559,6 +559,61 @@ def test_probe_stage_launches_on_card(cuda, run):
     assert int(out.num_rows) > 0
 
 
+def test_join_keys_kernel_matches_plain(cuda):
+    """The fused keys' kernel against its plain version on the CPU,
+    exactly, narrow and wide, on the adversarial cases
+    (`chip_smoke.keys_cases`: every pair of `chip_smoke.KEYS_TYPES` with
+    edge values, odd and off-16 capacities, row counts 0, 1 and the
+    capacity, rows of 1, 3, 4 and 7, every operator, tables across many
+    blocks) in every layout of `chip_smoke.probe_views`: strided and
+    misaligned views included."""
+    cases = chip_smoke.keys_cases(np.random.default_rng(82))
+    assert {c[1].shape[1] for c in cases} >= {1, 3, 4, 7}
+    assert {c[3] for c in cases} >= {0, 1} and any(c[3] == c[1].shape[0] > 1 for c in cases)
+    assert {(c[1].dtype.name, c[2].dtype.name) for c in cases} == set(chip_smoke.KEYS_TYPES)
+    for case in cases:
+        assert chip_smoke.keys_err(case) == 0, case[0]
+
+
+@pytest.mark.parametrize("case", chip_smoke.keys_error_cases(), ids=lambda c: c[0])
+def test_join_keys_kernel_raises_the_plain_versions_errors(cuda, case):
+    from pim_sort_merge_join_tpu_torch.ops import kernels
+
+    before = kernels.launch_counts()["join_keys"]
+    got, want = chip_smoke.keys_error(case, cuda), chip_smoke.keys_error(case, "cpu")
+    assert got == want
+    assert kernels.launch_counts()["join_keys"] == before + (want is None)
+
+
+@pytest.mark.parametrize("dtype", ["int64", "uint64", "float64"])
+def test_keys_stage_launches_on_card(cuda, dtype):
+    """The fused query's ``keys`` stage launches the kernel once, on int64
+    (the 10M query), uint64 and float64 tables alike; the rows equal the
+    CPU's."""
+    import dataclasses
+    import json
+
+    from pim_sort_merge_join_tpu_torch import Predicate, QueryPipeline, Table
+
+    n = 10_000_000 if dtype == "int64" else 30_000
+    r1, r2, cfg = chip_smoke.slice_inputs(n)
+    shift = 2**63 if dtype == "uint64" else 0
+    r1, r2 = (chip_smoke.shifted_key(r, np.dtype(dtype), shift) for r in (r1, r2))
+    p = Predicate(0, ">", shift + cfg.predicate1.value)
+    cfg = dataclasses.replace(cfg, dtype=dtype, predicate1=p, predicate2=p)
+    pipe = QueryPipeline(cfg, device=cuda)
+    got = pipe.run_tables(*(Table.from_numpy(r, dtype=dtype, device=cuda) for r in (r1, r2)))
+    (execute,) = json.loads(pipe.metrics_json())["stages"]
+    (keys_stage,) = [s for s in execute["stages"] if s["stage"] == "keys"]
+    assert keys_stage["launches"] == 1
+    if n > 30_000:
+        return
+    want = QueryPipeline(cfg, device="cpu").run_tables(
+        *(Table.from_numpy(r, dtype=dtype, device="cpu") for r in (r1, r2)))
+    assert torch.equal(got.data.cpu().view(torch.int64), want.data.view(torch.int64))
+    assert int(got.num_rows) == int(want.num_rows) > 0
+
+
 @pytest.mark.parametrize("dtype", ["int32", "float64"])
 def test_tables_of_another_type_than_the_config_match_cpu(cuda, dtype):
     """`EngineConfig()` (int64, narrow flags "auto") on int32 and float64
@@ -616,8 +671,9 @@ def test_pipeline_on_card_matches_cpu(cuda, key_offset):
     # rows; 64-bit keys: the merge sort gathers its two operands. The
     # "auto" narrow keys: one probe launch.
     assert ran == (chip_smoke.FUSED_WIDE_KERNELS if key_offset
-                   else chip_smoke.FUSED_KERNELS) | chip_smoke.PROBE_KERNELS
+                   else chip_smoke.FUSED_KERNELS) | chip_smoke.PROBE_KERNELS | chip_smoke.KEYS_KERNELS
     assert counts["narrow_extremes"] == 1
+    assert counts["join_keys"] == 1
     # One sort, the merge; the placement and one row gather in its place
     # of the un-merge and emit sorts.
     assert counts["hbm_sort_chunk"] == 1

@@ -97,9 +97,9 @@ def _inputs(name, dtype):
         m[: keep.shape[0]] = keep
         return torch.from_numpy(m) & t.valid_mask()
 
-    k1, k2 = join_ops.one_to_one_keys(t1, t2, 0, 0, mask(t1, keep1), mask(t2, keep2))
-    assert k1.dtype == torch.from_numpy(np.zeros(0, dtype)).dtype
-    return t1, t2, k1, k2
+    keys = join_ops.one_to_one_keys(t1, t2, 0, 0, mask(t1, keep1), mask(t2, keep2))
+    assert keys.dtype == torch.from_numpy(np.zeros(0, dtype)).dtype
+    return t1, t2, keys[:cap1], keys[cap1:]
 
 
 def _sorted_emit(t1, t2, key2, dest, mpos, num_out):
@@ -144,7 +144,7 @@ def test_placement_equals_the_unmerge_and_emit_sorts(name, dtype):
     assert src1.dtype == src2.dtype == torch.int32 and src1.shape == src2.shape == (cap1,)
     _assert_same(join_ops._emit(t1, t2, 0, src1, src2, num_out), want)
     # The join core, which dispatches to the plain placement on the CPU.
-    _assert_same(join_ops._one_to_one_merged(t1, t2, 0, k1, k2), want)
+    _assert_same(join_ops._one_to_one_merged(t1, t2, 0, torch.cat([k1, k2])), want)
 
 
 def test_placement_fills_each_slot_once_from_its_side():
@@ -165,7 +165,7 @@ def test_placement_fills_each_slot_once_from_its_side():
 def test_core_checks_the_sort_algorithm():
     t1, t2, k1, k2 = _inputs("all_matched", np.int64)
     with pytest.raises(ValueError, match="unknown sort algorithm"):
-        join_ops._one_to_one_merged(t1, t2, 0, k1, k2, sort_algorithm="quick")
+        join_ops._one_to_one_merged(t1, t2, 0, torch.cat([k1, k2]), sort_algorithm="quick")
 
 
 def test_placement_refuses_other_devices():
